@@ -9,9 +9,17 @@ Phases (each failure is fatal; nothing falls back to the CPU):
      uint8 input, with/without a gamma weight), timed with CUDA events;
   4. device parity: the coarse tracker and one windowed BA from the same
      state on CUDA and on the CPU;
-  5. the main path: SLAMSystem.process_frame on the card over 60 frames of
-     the 640x480 synthetic arc with bench.py's capacities, checked for
-     initialization, keyframes, lost frames, ATE and kernel launches.
+  5. the direct-only path: SLAMSystem.process_frame on the card over 60
+     frames of the 640x480 synthetic arc with bench.py's capacities, checked
+     for initialization, keyframes, lost frames, ATE and kernel launches;
+  6. hybrid device parity: feature extraction, matching, the init
+     refinement and PnP on one 480x640 frame, on CUDA and on the CPU;
+  7. the main path: the default (hybrid) configuration through
+     process_frame_pipelined with the mapping thread, 60 frames, checked for
+     initialization, keyframes, valid poses, ATE, indirect observations in
+     the BA and pyramid kernel launches, with fps and latencies printed;
+  8. relocalization on the card: the kidnapped camera (pose jump plus 4x
+     gain) through the sequential hybrid system.
 
 Prints a JSON kernel table on the line before the last, and as the last
 line {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -28,10 +36,13 @@ import numpy as np
 import torch
 
 SEQ_FRAMES = 60
-# JAX package (hslam_tpu, XLA:CPU) on the same 60-frame sequence and slice
-# configuration: Sim3-aligned ATE and keyframe count (see PERF.md)
+# JAX package (hslam_tpu, XLA:CPU) on the same 60-frame sequence: Sim3-aligned
+# ATE and keyframe count, for the direct-only configuration of phase 5
+# (sequential) and the default hybrid one of phase 7 (pipelined); PERF.md
 JAX_CPU_ATE = 0.0027565803515872665
 JAX_CPU_KFS = 4
+JAX_CPU_ATE_HYBRID = 0.002784366471442508
+JAX_CPU_KFS_HYBRID = 5
 LEVEL_ATOL = 1e-4            # tests/test_pallas.py: 0.25*sum vs mean, f32 order
 G2_RTOL, G2_ATOL = 1e-5, 1e-2
 
@@ -218,7 +229,7 @@ def phase_main_path(card):
         f"(n={len(kf_ms)})")
     log(f"[main] initialized={slam.initialized} keyframes={slam.next_kf_id} "
         f"(JAX CPU {JAX_CPU_KFS}) lost={slam.is_lost} pose_valid={len(valid)}/{SEQ_FRAMES} "
-        f"reloc_unported={slam.n_reloc_unported} ATE={ate:.6f} (bar {bar:.4f}, "
+        f"relocs={slam.n_relocs} ATE={ate:.6f} (bar {bar:.4f}, "
         f"JAX CPU {JAX_CPU_ATE:.6f})")
     log(f"[main] pyramid kernel launches {launches} plain calls {plain} "
         f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
@@ -229,7 +240,7 @@ def phase_main_path(card):
         failures.append(f"only {slam.next_kf_id} keyframes")
     if slam.is_lost or len(valid) != SEQ_FRAMES or not finite:
         failures.append("lost or invalid/non-finite poses")
-    if slam.n_reloc_unported != 0:
+    if slam.n_relocs != 0:
         failures.append("relocalization was needed")
     if not ate <= bar:
         failures.append(f"ATE {ate} above {bar}")
@@ -241,12 +252,235 @@ def phase_main_path(card):
     return launches
 
 
+def _frame_pair(H=480, W=640, fx=320.0):
+    """One frame of the synthetic scene and a second one a small motion
+    later (worldToCam of the second: (R, t))."""
+    from hslam_tpu_torch.io.synthetic import Scene, se3_exp_np
+    sc = Scene(H, W, fx)
+    R, t = se3_exp_np(np.array([0.04, 0.015, 0.01, 0.004, -0.006, 0.003]))
+    a = np.round(sc.render(np.eye(3), np.zeros(3))).astype(np.float32)
+    b = np.round(sc.render(R, t)).astype(np.float32)
+    return a, b, R, t, fx
+
+
+def _max_err(a, b):
+    return float(np.max(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))))
+
+
+def phase_hybrid_parity():
+    """The hybrid modules on one 480x640 frame pair, on CUDA and on the CPU."""
+    from hslam_tpu_torch.config import Config
+    from hslam_tpu_torch.ops import features as FT
+    from hslam_tpu_torch.ops.init_refine import direct_refine
+    from hslam_tpu_torch.ops.pnp import pnp_samples, solve_pnp
+    from hslam_tpu_torch.ops.pyramid import build_direct_pyramid
+    from hslam_tpu_torch.utils import lie
+    a, b, R, t, fx = _frame_pair()
+    H, W = a.shape
+    cfg = Config()
+    out = {}
+    for name in ("cpu", "cuda"):
+        dev = torch.device(name)
+        ext = [FT.extract_multiscale(torch.from_numpy(x).to(dev), cfg.ind_pyr_levels,
+                                     cfg.max_kf_features, float(cfg.min_th_fast),
+                                     scale=cfg.ind_pyr_scale) for x in (a, b)]
+        out[name] = dict(ext=[[y.cpu() for y in e] for e in ext])
+    ec, eg = out["cpu"]["ext"], out["cuda"]["ext"]
+    for k, (c, g) in enumerate(zip(ec, eg)):
+        cu, cv, cl, _, cd, cval = (x.numpy() for x in c)
+        gu, gv, gl, _, gd, gval = (x.numpy() for x in g)
+        kc = set(zip(cu[cval], cv[cval], cl[cval]))
+        kg = set(zip(gu[gval], gv[gval], gl[gval]))
+        same = (cu == gu) & (cv == gv) & cval & gval
+        log(f"[hybrid] extract_multiscale frame {k}: {int(cval.sum())} keypoints, "
+            f"sets equal={kc == kg}, descriptors equal at {int(same.sum())} "
+            f"coinciding: {bool((cd[same] == gd[same]).all())}")
+        if kc != kg or not (cd[same] == gd[same]).all():
+            raise AssertionError("extract_multiscale differs between CPU and CUDA")
+    # matching: the CPU descriptors on both devices (integer work)
+    m = {}
+    for name in ("cpu", "cuda"):
+        dev = torch.device(name)
+        args = [x.to(dev) for x in (ec[0][4], ec[0][5], ec[1][4], ec[1][5])]
+        m[name] = [x.cpu().numpy() for x in FT.match_pair(*args)]
+    equal = all((x == y).all() for x, y in zip(m["cpu"], m["cuda"]))
+    log(f"[hybrid] match_pair: {int(m['cpu'][1].sum())} matches, identical={equal}")
+    if not equal:
+        raise AssertionError("match_pair differs between CPU and CUDA")
+
+    # init refinement from the same inputs (tests/test_init_refine.py style)
+    rng = np.random.default_rng(0)
+    P = 1024
+    u = rng.uniform(16, W - 16, P).astype(np.float32)
+    v = rng.uniform(16, H - 16, P).astype(np.float32)
+    id0 = (0.5 * (1.0 + 0.15 * rng.standard_normal(P))).astype(np.float32)
+    tri = rng.uniform(size=P) < 0.7
+    xi0 = (np.array([0.04, 0.015, 0.01, 0.004, -0.006, 0.003])
+           * (1.0 + 0.1 * rng.standard_normal(6))).astype(np.float32)
+    res = {}
+    for name in ("cpu", "cuda"):
+        dev = torch.device(name)
+        pa, _ = build_direct_pyramid(torch.from_numpy(a).to(dev), 1)
+        pb, _ = build_direct_pyramid(torch.from_numpy(b).to(dev), 1)
+        R0, t0 = lie.se3_exp(torch.from_numpy(xi0).to(dev))
+        K4 = torch.tensor([fx, fx, W / 2 - 0.5, H / 2 - 0.5], device=dev)
+        r = direct_refine(pa[0], pb[0], *(torch.from_numpy(x).to(dev) for x in (u, v)),
+                          torch.ones(P, dtype=torch.bool, device=dev),
+                          torch.from_numpy(id0).to(dev), torch.from_numpy(tri).to(dev),
+                          R0, t0, K4, cfg)
+        res[name] = [x.cpu().numpy() for x in (r.R, r.t, r.good)]
+    eR, et = _max_err(res["cpu"][0], res["cuda"][0]), _max_err(res["cpu"][1], res["cuda"][1])
+    log(f"[hybrid] direct_refine: max|cpu-cuda| R {eR:.3g} t {et:.3g} (tol 1e-4), "
+        f"good {int(res['cpu'][2].sum())}/{int(res['cuda'][2].sum())}")
+    if not (eR <= 1e-4 and et <= 1e-4):
+        raise AssertionError("direct_refine differs between CPU and CUDA")
+
+    # PnP with fixed draws
+    Xw = np.stack([rng.uniform(-2, 2, 400), rng.uniform(-1.5, 1.5, 400),
+                   rng.uniform(3.0, 8.0, 400)], -1).astype(np.float32)
+    Xc = Xw @ R.T + t
+    obs = np.stack([fx * Xc[:, 0] / Xc[:, 2] + W / 2, fx * Xc[:, 1] / Xc[:, 2] + H / 2], -1)
+    obs = (obs + rng.normal(0, 0.5, obs.shape)).astype(np.float32)
+    obs[:100] = rng.uniform(0, 480, (100, 2))
+    valid = torch.ones(400, dtype=torch.bool)
+    samples = pnp_samples(valid, 64, 7)
+    K = torch.tensor([[fx, 0, W / 2], [0, fx, H / 2], [0, 0, 1.0]])
+    pp = {}
+    for name in ("cpu", "cuda"):
+        dev = torch.device(name)
+        r = solve_pnp(torch.from_numpy(Xw).to(dev), torch.from_numpy(obs).to(dev),
+                      valid.to(dev), K.to(dev), samples=samples.to(dev))
+        pp[name] = [x.cpu().numpy() for x in (r.R, r.t, r.ok)]
+    eR, et = _max_err(pp["cpu"][0], pp["cuda"][0]), _max_err(pp["cpu"][1], pp["cuda"][1])
+    log(f"[hybrid] solve_pnp: ok {bool(pp['cpu'][2])}/{bool(pp['cuda'][2])}, max|cpu-cuda| "
+        f"R {eR:.3g} t {et:.3g} (tol 1e-4), |t - truth| {_max_err(pp['cuda'][1], t):.3g}")
+    if not (bool(pp["cuda"][2]) and eR <= 1e-4 and et <= 1e-4):
+        raise AssertionError("solve_pnp differs between CPU and CUDA")
+
+
+def _hybrid_cfg():
+    from hslam_tpu_torch.config import Config
+    # bench.py's capacities; every other field keeps its default
+    # (enable_indirect=True, init_direct_refine=True, use_fast=False)
+    return Config(max_frames=8, max_points=2048, max_immature=2048, pyr_levels=6)
+
+
+def phase_pipelined(card):
+    """The main path: the default configuration through the pipelined
+    entry with the mapping thread."""
+    from hslam_tpu_torch.io.synthetic import Scene, make_sequence
+    from hslam_tpu_torch.io.trajectory import ate_rmse
+    from hslam_tpu_torch.models.system import SLAMSystem
+    from hslam_tpu_torch.ops import pyramid as P
+    H, W, FX = 480, 640, 320.0
+    cfg = _hybrid_cfg()
+    frames, centres = make_sequence(Scene(H, W, FX), SEQ_FRAMES)
+    slam = SLAMSystem(FX, FX, W / 2 - 0.5, H / 2 - 0.5, W, H, cfg, sequential=False,
+                      enable_loop_closure=False, device="cuda")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        P.kernel_launches = 0
+        P.plain_calls = 0
+        done_ms = []
+        t_all = time.perf_counter()
+        for i, f in enumerate(frames):
+            t0 = time.perf_counter()
+            out = slam.process_frame_pipelined(f, 0.05 * i)
+            torch.cuda.synchronize()
+            if out is not None:
+                done_ms.append(1e3 * (time.perf_counter() - t0))
+        slam.flush_pipeline()
+        slam.finish()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_all
+        launches, plain = P.kernel_launches, P.plain_calls
+    finally:
+        slam.close()
+    valid = [s.id for s in slam.shells if s.pose_valid]
+    finite = all(np.all(np.isfinite(s.cam_to_world)) for s in slam.shells)
+    ate = ate_rmse(centres[valid], np.array([slam.shells[i].cam_to_world[:3, 3] for i in valid]))
+    bar = max(1.5 * JAX_CPU_ATE_HYBRID, 0.02)
+    builds = SEQ_FRAMES + slam.n_track_retries
+    pct = lambda xs, q: float(np.percentile(xs, q)) if xs else float("nan")  # noqa: E731
+    ms = lambda xs: [round(1e3 * x, 1) for x in xs]  # noqa: E731
+    log(f"[pipelined] {card} | frames {SEQ_FRAMES} wall {wall:.2f}s fps {SEQ_FRAMES / wall:.2f}")
+    log(f"[pipelined] per-frame completion ms p50 {pct(done_ms, 50):.2f} "
+        f"p95 {pct(done_ms, 95):.2f} (n={len(done_ms)})")
+    log(f"[pipelined] kf_latencies ms {ms(slam.kf_latencies)}")
+    log(f"[pipelined] kf_full_latencies ms {ms(slam.kf_full_latencies)}")
+    log(f"[pipelined] initialized={slam.initialized} keyframes={slam.next_kf_id} "
+        f"(JAX CPU {JAX_CPU_KFS_HYBRID}) lost={slam.is_lost} "
+        f"pose_valid={len(valid)}/{SEQ_FRAMES} ATE={ate:.6f} (bar {bar:.4f}, "
+        f"JAX CPU {JAX_CPU_ATE_HYBRID:.6f}) ind_obs_history={slam.ind_obs_history}")
+    log(f"[pipelined] n_track_retries={slam.n_track_retries} "
+        f"n_frames_skipped={slam.n_frames_skipped} n_relocs={slam.n_relocs} "
+        f"pyramid kernel launches {launches} (builds {builds}) plain calls {plain} "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    failures = []
+    if not slam.initialized:
+        failures.append("not initialized")
+    if slam.next_kf_id < 3 or abs(slam.next_kf_id - JAX_CPU_KFS_HYBRID) > 1:
+        failures.append(f"{slam.next_kf_id} keyframes (JAX CPU {JAX_CPU_KFS_HYBRID})")
+    if slam.is_lost or len(valid) != SEQ_FRAMES or not finite:
+        failures.append("lost or invalid/non-finite poses")
+    if not ate <= bar:
+        failures.append(f"ATE {ate} above {bar}")
+    if sum(slam.ind_obs_history) <= 0:
+        failures.append("no indirect observation reached the BA")
+    if launches != builds * cfg.pyr_levels or plain != 0:
+        failures.append(f"kernel launches {launches} (want {builds * cfg.pyr_levels}), "
+                        f"plain calls {plain}")
+    if failures:
+        raise AssertionError("pipelined main path: " + "; ".join(failures))
+    return launches
+
+
+def phase_relocalization(card):
+    """The kidnapped camera of tests/test_system.py at 640x480: from frame
+    15 on, a persistent pose offset and a 4x gain on the float frames."""
+    from hslam_tpu_torch.io.synthetic import Scene, se3_exp_np, sweep_xi
+    from hslam_tpu_torch.models.system import SLAMSystem
+    from hslam_tpu_torch.ops import pyramid as P
+    H, W, FX = 480, 640, 320.0
+    sc = Scene(H, W, FX)
+    dR, dt = se3_exp_np(np.array([0.5, 0.25, 0.0, 0.0, 0.15, 0.0]))
+    slam = SLAMSystem(FX, FX, W / 2 - 0.5, H / 2 - 0.5, W, H, _hybrid_cfg(),
+                      enable_loop_closure=False, device="cuda")
+    P.kernel_launches = 0
+    P.plain_calls = 0
+    t0 = time.perf_counter()
+    n_frames = 30
+    for i in range(n_frames):
+        R, t = se3_exp_np(sweep_xi(i / 10.0))
+        if i < 15:
+            img = sc.render(R, t)
+        else:
+            img = sc.render(dR @ R, dR @ t + dt) * 4.0
+        slam.process_frame(img, i / 10.0)
+        if i == 14 and not slam.initialized:
+            raise AssertionError("relocalization: not initialized before the kidnap")
+    torch.cuda.synchronize()
+    launches, plain = P.kernel_launches, P.plain_calls
+    first = next((s.id for s in slam.shells if s.relocalized), None)
+    tail_ok = all(s.pose_valid for s in slam.shells[-5:])
+    log(f"[reloc] {card} | {n_frames} frames in {time.perf_counter() - t0:.2f}s, "
+        f"n_relocs={slam.n_relocs} (first at frame {first}) lost={slam.is_lost} "
+        f"last 5 valid={tail_ok} pyramid launches {launches} plain calls {plain}")
+    if slam.n_relocs < 1 or slam.is_lost or not tail_ok or plain != 0:
+        raise AssertionError("relocalization on the card failed")
+    return launches
+
+
 def main():
     card = phase_environment()
     phase_build()
     err, ms, plain_ms = phase_kernel()
     phase_parity()
     launches = phase_main_path(card)
+    phase_hybrid_parity()
+    launches += phase_pipelined(card)
+    launches += phase_relocalization(card)
     log(json.dumps({"kernels": [{
         "name": "pyramid_level", "route": "cuda",
         "source": "hslam_tpu_torch/csrc/pyramid.cu",

@@ -6,10 +6,13 @@ field names and array layouts, so the parity tests compare like with like.
 This package imports torch and never jax (nor hslam_tpu, whose import pulls
 jax in).
 
-Slice covered: the sequential direct-only main path of
-`models/system.py::SLAMSystem.process_frame` (bootstrap, tracking, keyframe
-step, non-keyframe tracing). The per-level pyramid pass is a hand-written
-CUDA kernel (csrc/pyramid.cu); everything else is plain torch.
+Covered: the default hybrid configuration of `models/system.py::SLAMSystem`
+without loop closure, through `process_frame` and the pipelined
+`process_frame_pipelined` with the mapping thread (bootstrap with direct
+refinement, tracking, ORB features and indirect association, the keyframe
+step, non-keyframe tracing, PnP relocalization). The per-level pyramid
+pass is a hand-written CUDA kernel (csrc/pyramid.cu); everything else is
+plain torch.
 """
 
 import torch as _torch

@@ -1,14 +1,15 @@
-"""The keyframe step, direct-only (port of hslam_tpu/models/kf_step.py:
+"""The keyframe step (port of hslam_tpu/models/kf_step.py:
 trace_candidates, activate_candidates, flag_and_marg_points,
-insert_new_traces, kf_step).
+insert_new_traces, indirect_associate, kf_step).
 
-AddKeyframe as one function: trace candidates into the new keyframe,
-insert it, activate candidates, windowed BA, outlier removal, the tracker
-template on the new reference, point marginalization, new candidate
-traces from the selector picks, frame marginalization, and the policy
-bundle the host state machine reads. The indirect branches (feature
-extraction, indirect association, keypoint depth lift) are not part of
-this slice; the bundle keeps their fields, zero-filled.
+AddKeyframe as one function: trace candidates into the new keyframe, the
+indirect frontend (multi-scale keypoints and descriptors of the new
+keyframe), insert it, activate candidates, indirect association (matched
+keypoints become reprojection observations of keypoint-hosted points), the
+windowed BA, outlier removal, the tracker template on the new reference,
+the keypoint depth lift, point marginalization, new candidate traces
+(keypoint-hosted ones first, then the selector picks), frame
+marginalization, and the policy bundle the host state machine reads.
 
 `flag_mask` is a host (numpy) array, so the per-slot `lax.cond` of the
 JAX code (kf_step.py:632) is a plain `if`.
@@ -27,6 +28,7 @@ from ..models.optimizer import BAResult, ba_optimize, marginalize_frame, margina
 from ..ops import activation as act_ops
 from ..ops import distmap as dist_ops
 from ..ops import epipolar as epi_ops
+from ..ops import features as ft
 from ..ops import tracker as trk_ops
 from ..utils import lie
 from ..utils.compaction import assign_free_slots, scatter_update
@@ -45,7 +47,8 @@ class Imm(NamedTuple):
     gradH: torch.Tensor        # (N, 2, 2)
     my_type: torch.Tensor      # (N,)
     energy_th: torch.Tensor
-    kp_idx: torch.Tensor       # (N,) int32, -1 (no keypoint link in this slice)
+    kp_idx: torch.Tensor       # (N,) int32 host keyframe keypoint, -1 for
+                               # gradient-selected candidates
     trace: epi_ops.TraceState
 
 
@@ -254,9 +257,10 @@ def sample_pattern(img, u, v, cfg: Config):
 
 
 def insert_new_traces(imm: Imm, slot: int, sel_u, sel_v, sel_type, sel_valid,
-                      dir0, cfg: Config) -> Imm:
+                      dir0, cfg: Config, sel_kp=None) -> Imm:
     """makeNewTraces: sample the picks' patterns and insert fresh
-    candidates into free slots."""
+    candidates into free slots. `sel_kp` links keypoint-hosted candidates
+    to the keyframe's feature table (-1 for gradient-selected ones)."""
     col, wgt, gH, finite = sample_pattern(dir0, sel_u, sel_v, cfg)
     slots, write = assign_free_slots(~imm.valid, sel_valid & finite)
 
@@ -282,19 +286,70 @@ def insert_new_traces(imm: Imm, slot: int, sel_u, sel_v, sel_type, sel_valid,
         my_type=put(imm.my_type, sel_type.float()),
         energy_th=put(imm.energy_th, torch.full_like(
             u, 8 * cfg.outlier_th * cfg.overall_energy_th_weight ** 2)),
-        kp_idx=put(imm.kp_idx, torch.full_like(slots, -1)),
+        kp_idx=put(imm.kp_idx, torch.full_like(slots, -1) if sel_kp is None else sel_kp),
         trace=new_trace,
     )
 
 
-def kf_step(window: W.Window, calib: Calib, imm: Imm, pyr: List[torch.Tensor],
-            R_new, t_new, aff_new, exp_new, slot: int, kf_id: int,
-            ref_slot: int, flag_mask: np.ndarray, act_dist: float, n_iter: int,
-            sel_u, sel_v, sel_type, sel_valid, cfg: Config):
-    """One keyframe insertion (AddKeyframe, Mapping.cpp:12-142).
-    Returns (window, calib, imm, template, ba_result, bundle)."""
-    if cfg.enable_indirect:
-        raise NotImplementedError("the indirect layer is not ported yet")
+def indirect_associate(window: W.Window, feats: ft.Feats, slot: int, cfg: Config,
+                       ind_w_scale=None) -> W.Window:
+    """Match every window keyframe's keypoints against the new keyframe's,
+    and give each keypoint-hosted active point its matched keypoint in the
+    new frame as a reprojection observation (the BA's ind_* factors).
+    `ind_w_scale` scales the information weight by tracking health."""
+    pts, frames = window.points, window.frames
+    F = frames.valid.shape[0]
+    NF = feats.u.shape[1]
+    midx, mok = ft.match_pair(feats.desc, feats.valid, feats.desc[slot], feats.valid[slot],
+                              max_dist=cfg.indirect_match_max_dist,
+                              ratio=cfg.indirect_match_ratio)       # (F, NF)
+    h = _hslot(pts.host, F)
+    kp = torch.clamp(pts.kp_idx.long(), 0, NF - 1)
+    j = midx[h, kp]                                                 # (P,)
+    ok = (mok[h, kp] & (pts.kp_idx >= 0) & (pts.status == W.PT_ACTIVE)
+          & frames.valid[h] & (pts.host != slot))
+    lvl = feats.level[slot, j].float()
+    w = cfg.indirect_weight / (cfg.ind_pyr_scale ** (2.0 * lvl))
+    if ind_w_scale is not None:
+        w = w * ind_w_scale
+
+    def col(arr, vals):
+        out = arr.clone()
+        out[:, slot] = vals.to(arr.dtype)
+        return out
+
+    return window._replace(points=pts._replace(
+        ind_u=col(pts.ind_u, feats.u[slot, j]), ind_v=col(pts.ind_v, feats.v[slot, j]),
+        ind_w=col(pts.ind_w, w), ind_valid=col(pts.ind_valid, ok)))
+
+
+def feats_with_slot(feats: ft.Feats, slot: int, new) -> ft.Feats:
+    """A copy of the keypoint store with slot `slot` replaced (the tracking
+    thread may read the old store while the mapper builds the new one)."""
+    out = []
+    for arr, val in zip(feats, new):
+        arr = arr.clone()
+        arr[slot] = val
+        out.append(arr)
+    return ft.Feats(*out)
+
+
+def extract_feats(img: torch.Tensor, cfg: Config):
+    """The keyframe feature extraction of the indirect layer (kf_step and
+    relocalization use the same call)."""
+    return ft.extract_multiscale(
+        img, cfg.ind_pyr_levels, cfg.max_kf_features, float(cfg.min_th_fast),
+        scale=cfg.ind_pyr_scale, do_subpix=cfg.do_subpix, use_fast_only=cfg.use_fast,
+        min_grad=float(cfg.min_grad_hist_add))
+
+
+def kf_step(window: W.Window, calib: Calib, imm: Imm, feats: ft.Feats,
+            pyr: List[torch.Tensor], R_new, t_new, aff_new, exp_new, slot: int,
+            kf_id: int, ref_slot: int, flag_mask: np.ndarray, act_dist: float,
+            n_iter: int, sel_u, sel_v, sel_type, sel_valid, cfg: Config,
+            ind_w_scale=None):
+    """One keyframe insertion (AddKeyframe, Mapping.cpp:12-142). Returns
+    (window, calib, imm, feats, template, ba_result, bundle)."""
     F = cfg.max_frames
     dev = R_new.device
     frames = window.frames
@@ -304,6 +359,12 @@ def kf_step(window: W.Window, calib: Calib, imm: Imm, pyr: List[torch.Tensor],
     # 1. trace candidates into this frame
     imm = imm._replace(trace=trace_candidates(
         imm, frames, calib.value, R_new, t_new, aff_new, exp_new, pyr[0], cfg))
+
+    # 2. indirect frontend: keypoints + descriptors of the new keyframe
+    if cfg.enable_indirect:
+        ext = extract_feats(pyr[0][..., 0], cfg)
+        feats = feats_with_slot(feats, slot, ext)
+        kp_u, kp_v, kp_valid = ext[0], ext[1], ext[5]
 
     # 3. insert the new frame into `slot`
     scale = torch.as_tensor(FRAME_STATE_SCALE, device=dev)
@@ -326,6 +387,10 @@ def kf_step(window: W.Window, calib: Calib, imm: Imm, pyr: List[torch.Tensor],
 
     # 4. activate candidate points
     window, imm = activate_candidates(window, calib, imm, slot, act_dist, cfg)
+
+    # 4b. indirect association (hybrid layer)
+    if cfg.enable_indirect:
+        window = indirect_associate(window, feats, slot, cfg, ind_w_scale=ind_w_scale)
 
     # 5. optimize
     result: BAResult = ba_optimize(window, calib, cfg, n_iter)
@@ -350,11 +415,32 @@ def kf_step(window: W.Window, calib: Calib, imm: Imm, pyr: List[torch.Tensor],
         result.newest_proj_u, result.newest_proj_v, result.newest_proj_idepth,
         weight, result.newest_res_in & (pts.status == W.PT_ACTIVE), pyr)
 
+    # 7b. keypoint depth lift: nearest valid level-0 template point within 3 px
+    NF = cfg.max_kf_features
+    if cfg.enable_indirect:
+        kp_idepth, kp_d2 = trk_ops.nearest_template_depth(
+            feats.u[slot], feats.v[slot], template.u[0], template.v[0],
+            template.idepth[0], template.valid[0])
+        kp_depth_ok = kp_d2 <= 9.0
+    else:
+        kp_idepth = torch.zeros(NF, device=dev)
+        kp_depth_ok = torch.zeros(NF, dtype=torch.bool, device=dev)
+
     # 8. flag + marginalize points
     window, removed_host, conn_marg = flag_and_marg_points(window, calib, flag_t, cfg)
 
-    # 9. new candidate traces from this keyframe's selector picks
-    imm = insert_new_traces(imm, slot, sel_u, sel_v, sel_type, sel_valid, pyr[0], cfg)
+    # 9. new candidate traces: keypoint-hosted candidates first (they carry
+    # the descriptor link), then the selector picks
+    if cfg.enable_indirect:
+        n_kp = kp_u.shape[0]
+        imm = insert_new_traces(
+            imm, slot, torch.cat([kp_u, sel_u]), torch.cat([kp_v, sel_v]),
+            torch.cat([torch.ones(n_kp, dtype=sel_type.dtype, device=dev), sel_type]),
+            torch.cat([kp_valid, sel_valid]), pyr[0], cfg,
+            sel_kp=torch.cat([torch.arange(n_kp, device=dev),
+                              torch.full_like(sel_type, -1).long()]))
+    else:
+        imm = insert_new_traces(imm, slot, sel_u, sel_v, sel_type, sel_valid, pyr[0], cfg)
 
     # 10. marginalize flagged frames, drop their candidates and observations
     for s in range(F):
@@ -372,7 +458,6 @@ def kf_step(window: W.Window, calib: Calib, imm: Imm, pyr: List[torch.Tensor],
     n_active_host.index_add_(0, _hslot(pts.host, F), pt_active.to(torch.int32))
     n_imm_host = torch.zeros(F, dtype=torch.int32, device=dev)
     n_imm_host.index_add_(0, _hslot(imm.host, F), imm.valid.to(torch.int32))
-    NF = cfg.max_kf_features
     bundle = KFBundle(
         rmse=result.rmse, valid=frames.valid, kf_id=frames.kf_id, Rwc=R_f, twc=t_f,
         aff=W.frame_affine(frames), exposure=frames.exposure, calib_value=calib.value,
@@ -381,7 +466,6 @@ def kf_step(window: W.Window, calib: Calib, imm: Imm, pyr: List[torch.Tensor],
         conn_active=conn_active, conn_marg=conn_marg,
         flow_ok=torch.where(frames.valid[:, None], torch.isfinite(t_f), True).all(),
         n_ind=(pts.ind_valid & pt_active[:, None] & frames.valid[None, :]).sum(),
-        kp_idepth=torch.zeros(NF, device=dev),
-        kp_depth_ok=torch.zeros(NF, dtype=torch.bool, device=dev),
+        kp_idepth=kp_idepth, kp_depth_ok=kp_depth_ok,
     )
-    return window, calib, imm, template, result, bundle
+    return window, calib, imm, feats, template, result, bundle

@@ -1,24 +1,41 @@
-"""The per-frame SLAM pipeline, sequential direct-only slice (port of
-hslam_tpu/models/system.py).
+"""The per-frame SLAM pipeline (port of hslam_tpu/models/system.py).
 
-`SLAMSystem.process_frame` is the entry: pyramid (CUDA kernel on a CUDA
-device), then either the bootstrap (selector -> KLT -> two-view -> KF0
-seeding) or tracking against the reference keyframe's template, the
-keyframe decision, and the keyframe step or non-keyframe tracing. The host
-keeps the small state machine (shells, window slot bookkeeping, policy
-mirrors refreshed from each keyframe's bundle), exactly as in the JAX
-package; numeric work is torch on `device`.
+Two entries, as in the JAX package:
+  * `process_frame`: pyramid (CUDA kernel on a CUDA device), then either the
+    bootstrap (selector -> KLT -> two-view -> direct refinement -> KF0
+    seeding with keypoint links) or tracking against the reference
+    keyframe's template, the keyframe decision, and the keyframe step or
+    non-keyframe tracing, inline (`sequential=True`) or handed to the
+    mapping thread (`sequential=False`).
+  * `process_frame_pipelined` (`sequential=False`): the fused per-frame
+    `track_step` (pyramid, device-side motion hypotheses, scoring, LM) with
+    the host finalization of a frame done `pipeline_lag` frames later, and
+    keyframes made by the mapping thread, which publishes each new tracker
+    reference through `_pending_ref`.
 
-Not in this slice, and refused with NotImplementedError instead of being
-silently skipped: the indirect layer (`enable_indirect`, `use_fast`), the
-photometric init refinement (`init_direct_refine`), loop closure, online
-photometric calibration, the threaded mapping pipeline (`sequential=False`)
-and point-sharded BA (`dist_mesh`). Relocalization needs features and PnP:
-`_attempt_relocalization` returns None and counts `n_reloc_unported`.
+The host keeps the small state machine (shells, window slot bookkeeping,
+policy mirrors refreshed from each keyframe's bundle), exactly as in the
+JAX package; numeric work is torch on `device`.
+
+Threads and the device: the tracking thread (the caller) and the mapping
+thread enqueue their work on the same CUDA stream (the default one), so
+every tensor one thread hands to the other was written by operations
+enqueued before it was handed over; no event or `record_stream` is needed. State
+shared between the threads is replaced, never mutated in place (the
+keypoint store, the window, the calibration), and a mapping-thread
+exception is raised on the tracking thread at its next call, by `finish`
+or by `close`.
+
+Refused with NotImplementedError, not silently skipped: loop closure,
+online photometric calibration, point-sharded BA (`dist_mesh`) and the
+metrics stream (`metrics_path`).
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
+import time as _time
+from collections import deque
 from typing import List, Optional
 
 import numpy as np
@@ -28,11 +45,15 @@ from ..config import Config
 from ..models import kf_step as KS
 from ..models import window as W
 from ..models.calib import k_pyr_from_value, make_calib
+from ..ops import features as FT
+from ..ops import init_refine as ir_ops
 from ..ops import klt as klt_ops
+from ..ops import orb as orb_ops
+from ..ops import pnp as pnp_ops
 from ..ops import selector as sel_ops
 from ..ops import tracker as trk_ops
 from ..ops import twoview as tv_ops
-from ..ops.pyramid import build_direct_pyramid
+from ..ops.pyramid import build_direct_pyramid, gaussian_blur7
 from ..utils import lie
 from ..utils.compaction import assign_free_slots, scatter_update
 
@@ -51,7 +72,7 @@ class Shell:
     is_kf: bool = False
     kf_id: int = -1
     pose_valid: bool = True
-    relocalized: bool = False
+    relocalized: bool = False     # pose from relocalization: no velocity across it
 
 
 def _se3_np(R, t):
@@ -75,13 +96,8 @@ def _se3_exp_np(xi):
 
 def _rot_perturbations(rot: float = 0.02) -> List[np.ndarray]:
     """The reference's 26 small-rotation perturbations (System.cpp:374-405)."""
-    axes = [(1, 0, 0), (0, 1, 0), (0, 0, 1), (-1, 0, 0), (0, -1, 0), (0, 0, -1),
-            (1, 1, 0), (0, 1, 1), (1, 0, 1), (-1, 1, 0), (0, -1, 1), (-1, 0, 1),
-            (1, -1, 0), (0, 1, -1), (1, 0, -1), (-1, -1, 0), (0, -1, -1), (-1, 0, -1),
-            (-1, -1, -1), (-1, -1, 1), (-1, 1, -1), (-1, 1, 1), (1, -1, -1), (1, -1, 1),
-            (1, 1, -1), (1, 1, 1)]
     out = []
-    for ax in axes:
+    for ax in trk_ops._ROT_AXES:
         q = np.array([1.0, *(rot * np.asarray(ax, np.float64))])
         q /= np.linalg.norm(q)
         pert = np.eye(4)
@@ -91,10 +107,12 @@ def _rot_perturbations(rot: float = 0.02) -> List[np.ndarray]:
     return out
 
 
-def init_seed(wnd: W.Window, img0, u, v, cand_ok, idepth, exposure: float,
-              cfg: Config):
+def init_seed(wnd: W.Window, feats: FT.Feats, img0, u, v, cand_ok, idepth,
+              exposure: float, cfg: Config, ext=None):
     """InitFromInitializer's numeric core (System.cpp:249-319): KF0 into
-    slot 0 plus depth-prior'd active points. Returns (window, n_points)."""
+    slot 0 plus depth-prior'd active points, each linked to the nearest
+    keypoint within 2.5 px when the indirect layer is on (`ext` holds KF0's
+    extracted features). Returns (window, feats, n_points)."""
     dev = img0.device
     fr = {k: x.clone() for k, x in wnd.frames._asdict().items()}
     fr["valid"][0] = True
@@ -108,6 +126,16 @@ def init_seed(wnd: W.Window, img0, u, v, cand_ok, idepth, exposure: float,
     fr["images"][0] = img0
     col, wgt, _gH, finite = KS.sample_pattern(img0, u, v, cfg)
     cand_ok = cand_ok & finite
+
+    kp_link = torch.full_like(u, -1, dtype=torch.int32)
+    if cfg.enable_indirect:
+        feats = KS.feats_with_slot(feats, 0, ext)
+        f_u, f_v, f_val = ext[0], ext[1], ext[5]
+        d2 = (u[:, None] - f_u[None, :]) ** 2 + (v[:, None] - f_v[None, :]) ** 2
+        d2 = torch.where(f_val[None, :], d2, torch.full_like(d2, float("inf")))
+        nn = d2.argmin(dim=1)
+        kp_link = torch.where(d2.amin(dim=1) <= 2.5 ** 2, nn, -1).to(torch.int32)
+
     pts = wnd.points
     slots, write = assign_free_slots(pts.status == W.PT_EMPTY, cand_ok)
 
@@ -115,7 +143,7 @@ def init_seed(wnd: W.Window, img0, u, v, cand_ok, idepth, exposure: float,
         return scatter_update(arr, slots, write, vals)
 
     pts = pts._replace(
-        kp_idx=put(pts.kp_idx, torch.full_like(slots, -1)),
+        kp_idx=put(pts.kp_idx, kp_link),
         status=put(pts.status, torch.full_like(slots, W.PT_ACTIVE)),
         host=put(pts.host, torch.zeros_like(slots)),
         u=put(pts.u, u), v=put(pts.v, v), idepth=put(pts.idepth, idepth),
@@ -123,27 +151,29 @@ def init_seed(wnd: W.Window, img0, u, v, cand_ok, idepth, exposure: float,
         weight=put(pts.weight, wgt),
         prior=put(pts.prior, torch.full_like(u, cfg.idepth_fix_prior)),
     )
-    return W.Window(frames=W.Frames(**fr), points=pts, HM=wnd.HM, bM=wnd.bM), cand_ok.sum()
+    window = W.Window(frames=W.Frames(**fr), points=pts, HM=wnd.HM, bM=wnd.bM)
+    return window, feats, cand_ok.sum()
 
 
 class SLAMSystem:
-    """Monocular direct SLAM engine on torch (sequential, direct-only)."""
+    """Monocular hybrid direct-indirect SLAM engine on torch."""
 
     MAX_HYP = 32
+    # mapping-queue depth beyond which the mapper fast-forwards to the
+    # freshest frame (see _mapping_loop)
+    CATCHUP_DRAIN = 8
     _POT_LADDER = (3, 4, 5, 6, 8)
 
     def __init__(self, fx, fy, cx, cy, width, height, cfg: Config = Config(),
                  enable_loop_closure: bool = True, sequential: bool = True,
                  online_photo_calib: bool = False, dist_mesh=None,
+                 metrics_path: Optional[str] = None,
                  device: str | torch.device = "cpu"):
         unported = {
-            "cfg.enable_indirect=True": cfg.enable_indirect,
-            "cfg.init_direct_refine=True": cfg.init_direct_refine,
-            "cfg.use_fast=True": cfg.use_fast,
             "enable_loop_closure=True": enable_loop_closure,
             "online_photo_calib=True": online_photo_calib,
-            "sequential=False": not sequential,
             "dist_mesh": dist_mesh is not None,
+            "metrics_path": metrics_path is not None,
         }
         bad = [k for k, v in unported.items() if v]
         if bad:
@@ -153,9 +183,10 @@ class SLAMSystem:
         self.device = torch.device(device)
         self.calib = make_calib(fx, fy, cx, cy, width, height, device=self.device)
         self.width, self.height = width, height
-        self.n_reloc_unported = 0   # relocalization was needed (not ported)
+        self.n_relocs = 0            # successful PnP relocalizations
         self.window = W.empty_window(cfg, height, width, device=self.device)
         self.imm = KS.empty_imm(cfg, device=self.device)
+        self.feats = FT.empty_feats(cfg.max_frames, cfg.max_kf_features, device=self.device)
         self.shells: List[Shell] = []
         self.kf_shell_ids: List[int] = []
         self.slot_shell: List[Optional[int]] = [None] * cfg.max_frames
@@ -179,6 +210,7 @@ class SLAMSystem:
         self._m_nact_host = np.zeros(F, np.int64)
         self._m_nimm_host = np.zeros(F, np.int64)
         self._m_n_active = 0
+        self.ind_obs_history: List[int] = []   # live indirect observations per KF
         self.template: Optional[trk_ops.Template] = None
         self.ref_slot = -1
         self.ref_shell_id = -1
@@ -188,14 +220,79 @@ class SLAMSystem:
         self._perts = _rot_perturbations()
         self._K_pyr_cache = k_pyr_from_value(self.calib.value, cfg.pyr_levels)
 
+        # --- tracking/mapping threads (sequential=False): the mapping thread
+        # consumes tracked frames; new tracker references come back through
+        # the double buffer _pending_ref (System.cpp:127-133)
+        self.sequential = sequential
+        self._pending_ref = None          # (template, slot, shell_id, aff, exp)
+        self._ref_lock = threading.Lock()
+        self._shell_lock = threading.Lock()
+        self._map_exc: Optional[BaseException] = None
+        self.n_frames_skipped = 0         # non-KF frames dropped in catch-up
+        self._need_kf_after = -1          # NeedNewKFAfter latch (shell id)
+        self._catch_up = False
+        self._pending_kf_final = None     # deferred keyframe finalization
+        # lag-N pipelined tracking (process_frame_pipelined)
+        self.pipeline_lag = 2
+        self._pipe: deque = deque()
+        self._frontier_frames = 0
+        eye4 = torch.eye(4, device=self.device)
+        self._dev_prev = eye4
+        self._dev_prevprev = eye4
+        self._dev_aff = torch.zeros(2, device=self.device)
+        self._prev_ts = 0.0
+        self._prevprev_ts = 0.0
+        self.n_track_retries = 0          # batched-winner rejections
+        # kf_latencies: dispatch to fresh template (what the tracker waits
+        # on); kf_full_latencies: dispatch to the finalized bundle
+        self.kf_latencies: deque = deque(maxlen=200)
+        self.kf_full_latencies: deque = deque(maxlen=200)
+        self._map_thread = None
+        if not sequential:
+            self._queue: deque = deque()
+            self._qcond = threading.Condition()
+            self._map_stop = False
+            self._map_busy = False
+            self._map_thread = threading.Thread(target=self._mapping_loop, daemon=True)
+            self._map_thread.start()
+
     # ------------------------------------------------------------ helpers
     def _f32(self, x):
         return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
 
     def _select_px(self, pot, dir_img, grads, want, seed):
+        """Candidate pixels: the gradient selector, or with cfg.use_fast
+        FAST corners + grid NMS."""
         cfg = self.cfg
+        if cfg.use_fast:
+            score = orb_ops.fast_score(dir_img[..., 0], float(cfg.min_th_fast))
+            u, v, valid = orb_ops.grid_nms(score, max(cfg.enforced_min_dist, 4),
+                                           cfg.max_features)
+            return u, v, torch.ones_like(u, dtype=torch.int32), valid
         status = sel_ops.select_pixels(dir_img, tuple(grads[:3]), pot, 1.0, seed, cfg)
         return sel_ops.compact_selection(status, grads[0], cfg.max_features, want, seed)
+
+    def _raise_map_exc(self):
+        if self._map_exc is not None:
+            exc, self._map_exc = self._map_exc, None
+            raise exc
+
+    def _adopt_pending_ref(self):
+        """Take a freshly published tracker reference (System.cpp:127-133)."""
+        with self._ref_lock:
+            if self._pending_ref is not None:
+                (self.template, self.ref_slot, self.ref_shell_id,
+                 self.ref_aff, self.ref_exposure) = self._pending_ref
+                self._pending_ref = None
+                self.first_coarse_rmse = -1.0
+
+    def _new_shell(self, timestamp, exposure) -> Shell:
+        shell = Shell(id=self.frame_count, timestamp=timestamp, exposure=exposure,
+                      cam_to_world=np.eye(4), tracking_ref=None,
+                      cam_to_ref=np.eye(4), aff=np.zeros(2))
+        self.frame_count += 1
+        self.shells.append(shell)
+        return shell
 
     # ------------------------------------------------------------ main entry
     def process_frame(self, image: np.ndarray, timestamp: float,
@@ -204,22 +301,260 @@ class SLAMSystem:
         uint8 or float, geometrically and photometrically corrected."""
         raw = torch.as_tensor(np.ascontiguousarray(image)).to(self.device)
         pyr, grads = build_direct_pyramid(raw, self.cfg.pyr_levels)
-        shell = Shell(id=self.frame_count, timestamp=timestamp, exposure=exposure,
-                      cam_to_world=np.eye(4), tracking_ref=None,
-                      cam_to_ref=np.eye(4), aff=np.zeros(2))
-        self.frame_count += 1
-        self.shells.append(shell)
+        shell = self._new_shell(timestamp, exposure)
+        self._raise_map_exc()
         if not self.initialized:
             self._try_initialize(shell, pyr, grads)
             return shell
+        self._adopt_pending_ref()
         if not self._track_new_coarse(shell, pyr):
             self.is_lost = True
             return shell
-        if self._need_keyframe(shell):
-            self._add_keyframe(shell, pyr, grads)
+        need_kf = self._need_keyframe(shell)
+        if self.sequential:
+            if need_kf:
+                self._add_keyframe(shell, pyr, grads)
+            else:
+                self._process_non_kf(shell, pyr)
         else:
-            self._process_non_kf(shell, pyr)
+            self._enqueue(shell, pyr, grads, need_kf)
         return shell
+
+    def _enqueue(self, shell, pyr, grads, need_kf):
+        """Hand a tracked frame to the mapping thread. Frames go untagged; a
+        keyframe need only raises the NeedNewKFAfter latch (System.cpp:191-198)."""
+        with self._qcond:
+            if need_kf and shell.tracking_ref is not None:
+                self._need_kf_after = max(self._need_kf_after, shell.tracking_ref)
+            self._queue.append((shell, pyr, grads))
+            self._qcond.notify_all()
+
+    # ---------------------------------------------------- pipelined entry
+    def process_frame_pipelined(self, image: np.ndarray, timestamp: float,
+                                exposure: float = 1.0) -> Optional[Shell]:
+        """Pipelined ProcessNewFrame: run this frame's fused tracking step,
+        then finalize the frame `pipeline_lag` frames back. Returns the
+        newly completed shell, or None. Needs sequential=False; call
+        flush_pipeline() and finish() at the end of a sequence."""
+        if self.sequential:
+            raise RuntimeError("process_frame_pipelined needs sequential=False")
+        self._raise_map_exc()
+        cfg = self.cfg
+        shell = self._new_shell(timestamp, exposure)
+        if not self.initialized:
+            self.flush_pipeline()
+            raw = torch.as_tensor(np.ascontiguousarray(image)).to(self.device)
+            pyr, grads = build_direct_pyramid(raw, cfg.pyr_levels)
+            self._try_initialize(shell, pyr, grads)
+            if self.initialized:
+                # seed the device frontier at the second init keyframe
+                self._frontier_frames = 0
+                self._dev_prev = self._f32(shell.cam_to_world)
+                self._dev_prevprev = self._dev_prev
+                self._dev_aff = self._f32(shell.aff)
+            return None
+
+        self._adopt_pending_ref()
+        with self._shell_lock:
+            ref_c2w = self.shells[self.ref_shell_id].cam_to_world.copy()
+        shell.tracking_ref = self.ref_shell_id
+        # timestamp-gap ratio: under input skipping the constant-motion
+        # hypothesis must cover several camera periods
+        dt_prev = self._prev_ts - self._prevprev_ts
+        dt_new = timestamp - self._prev_ts
+        if self._frontier_frames >= 2 and dt_prev > 1e-9 and dt_new > 0:
+            dt_ratio = float(np.clip(dt_new / dt_prev, 0.1, 32.0))
+        else:
+            dt_ratio = 1.0
+        # the frame crosses to the device in its own dtype (uint8: 4x fewer
+        # bytes); the pyramid casts it there
+        raw = torch.as_tensor(np.ascontiguousarray(image)).to(self.device)
+        out = trk_ops.track_step(
+            self.template, raw, self.calib.value, self._f32(ref_c2w),
+            self._dev_prev, self._dev_prevprev, self._frontier_frames >= 2,
+            self._dev_aff, self._f32(self.ref_exposure), self._f32(shell.exposure),
+            self._f32(self.ref_aff), cfg, cfg.pyr_levels, dt_ratio=dt_ratio)
+        self._pipe.append((shell, out, raw))
+        self._dev_prevprev = self._dev_prev
+        self._dev_prev = out.c2w
+        self._dev_aff = out.aff
+        self._prevprev_ts = self._prev_ts
+        self._prev_ts = timestamp
+        self._frontier_frames += 1
+        if len(self._pipe) > self.pipeline_lag:
+            return self._complete_tracked(*self._pipe.popleft())
+        return None
+
+    def flush_pipeline(self):
+        """Complete all in-flight pipelined frames."""
+        out = None
+        while self._pipe:
+            out = self._complete_tracked(*self._pipe.popleft())
+        return out
+
+    @staticmethod
+    def _pull_track(out):
+        """One host pull of a tracking result (R, t, aff, ok, residuals,
+        flow)."""
+        flat = torch.cat([out.R.reshape(-1), out.t, out.aff, out.ok.float()[None],
+                          out.residuals, out.flow]).cpu().numpy().astype(np.float64)
+        L = out.residuals.shape[0]
+        return (flat[:9].reshape(3, 3), flat[9:12], flat[12:14], flat[14] > 0.5,
+                flat[15:15 + L], flat[15 + L:18 + L])
+
+    def _complete_tracked(self, shell: Shell, out, raw) -> Shell:
+        """Finalize one pipelined frame: pull the result, publish the pose,
+        retry from a reset motion frontier if the batched winner was
+        rejected (then relocalize, then keep the predicted pose), decide the
+        keyframe and hand the frame to the mapping thread."""
+        cfg = self.cfg
+        R_h, t_h, aff_h, ok_h, res_h, flow_h = self._pull_track(out)    # host sync
+        ok = ok_h and np.isfinite(res_h[0]) and np.all(np.isfinite(t_h))
+        if ok:
+            self.last_coarse_rmse = np.where(np.isnan(res_h), 100.0, np.minimum(res_h, 1e9))
+            if self.first_coarse_rmse < 0:
+                self.first_coarse_rmse = float(res_h[0])
+            shell.cam_to_ref = np.linalg.inv(_se3_np(R_h, t_h))
+            with self._shell_lock:
+                shell.cam_to_world = self.shells[shell.tracking_ref].cam_to_world @ shell.cam_to_ref
+            shell.aff = aff_h.copy()
+            self._last_flow = flow_h.copy()
+        else:
+            # zero-motion hypotheses from the reference keyframe, through the
+            # same track_step on the staged frame
+            self.n_track_retries += 1
+            with self._shell_lock:
+                ref_c2w = self.shells[self.ref_shell_id].cam_to_world.copy()
+            ref_dev = self._f32(ref_c2w)
+            ref_aff = self._f32(self.ref_aff)
+            out2 = trk_ops.track_step(
+                self.template, raw, self.calib.value, ref_dev, ref_dev, ref_dev, False,
+                ref_aff, self._f32(self.ref_exposure), self._f32(shell.exposure), ref_aff,
+                cfg, cfg.pyr_levels, dt_ratio=1.0)
+            R2, t2, aff2, ok2, res2, flow2 = self._pull_track(out2)       # host sync
+            if ok2 and np.isfinite(res2[0]) and np.all(np.isfinite(t2)):
+                self.last_coarse_rmse = np.where(np.isnan(res2), 100.0, np.minimum(res2, 1e9))
+                shell.cam_to_ref = np.linalg.inv(_se3_np(R2, t2))
+                with self._shell_lock:
+                    shell.cam_to_world = ref_c2w @ shell.cam_to_ref
+                shell.aff = aff2.copy()
+                self._last_flow = flow2.copy()
+            else:
+                # recovery: PnP relocalization, else the predicted pose
+                reloc = self._attempt_relocalization(shell, out.pyr)
+                if reloc is not None:
+                    self.n_relocs += 1
+                    shell.relocalized = True
+                    shell.cam_to_world = reloc
+                else:
+                    shell.pose_valid = False
+                    shell.cam_to_world = ref_c2w
+                shell.cam_to_ref = np.linalg.inv(ref_c2w) @ shell.cam_to_world
+                shell.aff = np.asarray(self.ref_aff, np.float64).copy()
+                self._last_flow = np.zeros(3)
+            self._frontier_frames = 0
+            self._dev_prev = self._f32(shell.cam_to_world)
+            self._dev_prevprev = self._dev_prev
+            self._dev_aff = self._f32(shell.aff)
+        self._enqueue(shell, out.pyr, out.grads, self._need_keyframe(shell))
+        return shell
+
+    # ------------------------------------------------------ mapping thread
+    def _mapping_loop(self):
+        """Consumer of the tracked-frame queue, the reference's MappingThread
+        policy (Mapping.cpp:143-214): the first two tracked frames after
+        init are forced keyframes; while more frames wait, the popped one
+        is traced as a non-keyframe (in catch-up a second one is dropped);
+        the freshest frame becomes a keyframe iff the NeedNewKFAfter latch
+        outlives the newest keyframe."""
+        while True:
+            with self._qcond:
+                while not self._queue and not self._map_stop:
+                    self._qcond.wait()
+                if self._map_stop and not self._queue:
+                    return
+                shell, pyr, grads = self._queue.popleft()
+                more = len(self._queue)
+                self._map_busy = True
+            try:
+                if more > self.CATCHUP_DRAIN:
+                    # severe overload: keep only the freshest frame
+                    dropped = [shell]
+                    with self._qcond:
+                        while len(self._queue) > 1:
+                            dropped.append(self._queue.popleft()[0])
+                        shell, pyr, grads = self._queue.pop()
+                        more = len(self._queue)
+                    self._rebase_shells(dropped)
+                    self.n_frames_skipped += len(dropped)
+                if len(self.kf_shell_ids) <= 2:
+                    # forced keyframes; the init gates are live, so synchronous
+                    self._finalize_pending_kf()
+                    t_kf = _time.perf_counter()
+                    self._add_keyframe(shell, pyr, grads)
+                    self.kf_latencies.append(_time.perf_counter() - t_kf)
+                elif more > 0:
+                    if more > 3:
+                        self._catch_up = True
+                    self._process_non_kf(shell, pyr)
+                    self._finalize_pending_kf()
+                    if self._catch_up:
+                        # drop every second frame while behind (Mapping.cpp:177-192)
+                        extra = None
+                        with self._qcond:
+                            if self._queue:
+                                extra = self._queue.popleft()
+                        if extra is not None:
+                            self._rebase_shells([extra[0]])
+                            self.n_frames_skipped += 1
+                else:
+                    newest_sid = self.kf_shell_ids[-1] if self.kf_shell_ids else -1
+                    if self._need_kf_after >= newest_sid:
+                        self._finalize_pending_kf()
+                        t_kf = _time.perf_counter()
+                        self._add_keyframe(shell, pyr, grads, defer=True)
+                        self.kf_latencies.append(_time.perf_counter() - t_kf)
+                        self._catch_up = False
+                    else:
+                        self._process_non_kf(shell, pyr)
+                        self._finalize_pending_kf()
+            except Exception as e:        # raised on the tracking thread
+                self._map_exc = e
+            finally:
+                with self._qcond:
+                    self._map_busy = False
+                    self._qcond.notify_all()
+
+    def _rebase_shells(self, shells):
+        """Pose bookkeeping of frames the mapper drops."""
+        with self._shell_lock:
+            for sh in shells:
+                if sh.tracking_ref is not None:
+                    sh.cam_to_world = self.shells[sh.tracking_ref].cam_to_world @ sh.cam_to_ref
+
+    def finish(self):
+        """BlockUntilMappingIsFinished: drain the mapping queue and fold in a
+        deferred keyframe finalization. No-op in sequential mode."""
+        if self.sequential:
+            return
+        with self._qcond:
+            while self._queue or self._map_busy:
+                self._qcond.wait()
+        self._raise_map_exc()
+        self._finalize_pending_kf()
+
+    def close(self):
+        """Stop and join the mapping thread (after finish()). Raises a
+        mapping-thread exception that was not raised yet."""
+        if self._map_thread is not None:
+            with self._qcond:
+                self._map_stop = True
+                self._qcond.notify_all()
+            self._map_thread.join(timeout=60.0)
+            if self._map_thread.is_alive():
+                raise RuntimeError("mapping thread did not stop within 60 s")
+            self._map_thread = None
+        self._raise_map_exc()
 
     # ------------------------------------------------------------ bootstrap
     def _try_initialize(self, shell: Shell, pyr, grads):
@@ -265,6 +600,21 @@ class SLAMSystem:
         R12 = res.R.cpu().numpy().astype(np.float64)
         idepth = 1.0 / np.maximum(z * scale, 1e-4)
         cand_ok = tri & (idepth > 0)
+
+        # DirectRefinement: joint photometric polish of pose and idepths
+        if cfg.init_direct_refine:
+            ref = ir_ops.direct_refine(
+                first["dir0"], pyr[0], first["u"], first["v"], first["valid"],
+                self._f32(idepth), torch.as_tensor(tri, device=self.device),
+                self._f32(R12), self._f32(t_scaled), self.calib.value, cfg)
+            R_h, t_h, id_h, good_h = (x.cpu().numpy() for x in
+                                      (ref.R, ref.t, ref.idepth, ref.good))  # host sync
+            if np.all(np.isfinite(t_h)) and np.all(np.isfinite(R_h)):
+                R12, t_scaled = R_h.astype(np.float64), t_h.astype(np.float64)
+                # refined idepths for the triangulated survivors only
+                keep = tri & good_h & np.isfinite(id_h)
+                idepth = np.where(keep, id_h, idepth)
+                cand_ok = tri & good_h & (idepth > 0)
         self._setup_from_init(first, shell, pyr, grads, R12, t_scaled, idepth, cand_ok)
 
     def _setup_from_init(self, first, shell, pyr, grads, R12, t12, idepth, ok_mask):
@@ -281,10 +631,11 @@ class SLAMSystem:
         shell.cam_to_ref = shell.cam_to_world.copy()
         self.slot_shell[0] = first_shell.id
         self.kf_shell_ids.append(first_shell.id)
-        self.window, n_pts0_d = init_seed(
-            self.window, first["dir0"], first["u"], first["v"],
+        ext = KS.extract_feats(first["dir0"][..., 0], cfg) if cfg.enable_indirect else None
+        self.window, self.feats, n_pts0_d = init_seed(
+            self.window, self.feats, first["dir0"], first["u"], first["v"],
             torch.as_tensor(ok_mask, device=self.device), self._f32(idepth),
-            float(first_shell.exposure or 1.0), cfg)
+            float(first_shell.exposure or 1.0), cfg, ext)
         self.initialized = True
         self._init_first = None
         n_pts0 = int(n_pts0_d)                                   # host sync
@@ -304,38 +655,40 @@ class SLAMSystem:
 
     # ------------------------------------------------------------- tracking
     def _motion_hypotheses(self, anchor: Optional[int] = None):
-        """Hypothesis list (System.cpp:347-405) + initial affine guess."""
-        ref_shell = self.shells[self.ref_shell_id]
-        if anchor is None:
-            anchor = len(self.shells) - 1
-        tries = []
-        if anchor >= 2 and self.shells[anchor - 1].pose_valid:
-            slast = self.shells[anchor - 1]
-            sprelast = self.shells[anchor - 2]
-            if slast.relocalized or not sprelast.pose_valid:
-                T_sp = np.eye(4)
+        """Hypothesis list (System.cpp:347-405) + initial affine guess, read
+        under the shell lock."""
+        with self._shell_lock:
+            ref_shell = self.shells[self.ref_shell_id]
+            if anchor is None:
+                anchor = len(self.shells) - 1
+            tries = []
+            if anchor >= 2 and self.shells[anchor - 1].pose_valid:
+                slast = self.shells[anchor - 1]
+                sprelast = self.shells[anchor - 2]
+                if slast.relocalized or not sprelast.pose_valid:
+                    T_sp = np.eye(4)
+                else:
+                    T_sp = np.linalg.inv(sprelast.cam_to_world) @ slast.cam_to_world
+                    dt_prev = slast.timestamp - sprelast.timestamp
+                    dt_new = self.shells[anchor].timestamp - slast.timestamp
+                    if dt_prev > 1e-9 and dt_new > 0:
+                        r = float(np.clip(dt_new / dt_prev, 0.1, 32.0))
+                        if abs(r - 1.0) > 1e-6:
+                            T_sp = _se3_exp_np(r * _se3_log_np(T_sp))
+                T_ls = np.linalg.inv(slast.cam_to_world) @ ref_shell.cam_to_world
+                inv = np.linalg.inv
+                tries.append(inv(T_sp) @ T_ls)
+                tries.append(inv(T_sp) @ inv(T_sp) @ T_ls)
+                half = _se3_exp_np(0.5 * _se3_log_np(T_sp))
+                tries.append(inv(half) @ T_ls)
+                tries.append(T_ls)
+                tries.append(np.eye(4))
+                base = inv(T_sp) @ T_ls
+                tries.extend(base @ p for p in self._perts)
+                aff_init = self.shells[anchor - 1].aff.copy()
             else:
-                T_sp = np.linalg.inv(sprelast.cam_to_world) @ slast.cam_to_world
-                dt_prev = slast.timestamp - sprelast.timestamp
-                dt_new = self.shells[anchor].timestamp - slast.timestamp
-                if dt_prev > 1e-9 and dt_new > 0:
-                    r = float(np.clip(dt_new / dt_prev, 0.1, 32.0))
-                    if abs(r - 1.0) > 1e-6:
-                        T_sp = _se3_exp_np(r * _se3_log_np(T_sp))
-            T_ls = np.linalg.inv(slast.cam_to_world) @ ref_shell.cam_to_world
-            inv = np.linalg.inv
-            tries.append(inv(T_sp) @ T_ls)
-            tries.append(inv(T_sp) @ inv(T_sp) @ T_ls)
-            half = _se3_exp_np(0.5 * _se3_log_np(T_sp))
-            tries.append(inv(half) @ T_ls)
-            tries.append(T_ls)
-            tries.append(np.eye(4))
-            base = inv(T_sp) @ T_ls
-            tries.extend(base @ p for p in self._perts)
-            aff_init = self.shells[anchor - 1].aff.copy()
-        else:
-            tries.append(np.eye(4))
-            aff_init = np.zeros(2)
+                tries.append(np.eye(4))
+                aff_init = np.zeros(2)
         return tries, aff_init
 
     def _track_new_coarse(self, shell: Shell, pyr) -> bool:
@@ -351,13 +704,7 @@ class SLAMSystem:
             self._f32(aff_init), self._f32(self.ref_exposure),
             self._f32(shell.exposure), self._f32(self.ref_aff), self.cfg,
             coarsest_lvl=self.cfg.pyr_levels - 1)
-        # one pull of the whole result per frame (host sync)
-        flat = torch.cat([res.R.reshape(-1), res.t, res.aff, res.ok.float()[None],
-                          res.residuals, res.flow]).cpu().numpy().astype(np.float64)
-        R_h, t_h, aff_h = flat[:9].reshape(3, 3), flat[9:12], flat[12:14]
-        ok_h = flat[14] > 0.5
-        L = self.cfg.pyr_levels
-        res_h, flow_h = flat[15:15 + L], flat[15 + L:18 + L]
+        R_h, t_h, aff_h, ok_h, res_h, flow_h = self._pull_track(res)    # host sync
         if ok_h and np.isfinite(res_h[0]):
             self.last_coarse_rmse = np.where(np.isnan(res_h), 100.0, np.minimum(res_h, 1e9))
             if self.first_coarse_rmse < 0:
@@ -372,7 +719,7 @@ class SLAMSystem:
 
     def _track_serial(self, shell: Shell, pyr, tries, aff_init) -> bool:
         """The reference's serial try-loop with achievedRes early exit
-        (System.cpp:428-481)."""
+        (System.cpp:428-481), then relocalization."""
         cfg = self.cfg
         achieved = np.full(cfg.pyr_levels, np.nan)
         best = None
@@ -396,37 +743,92 @@ class SLAMSystem:
                 break
 
         if not have_good:
-            self._attempt_relocalization(shell, pyr)
-            shell.pose_valid = False
-            T = tries[0]
-            shell.cam_to_ref = np.linalg.inv(T)
+            ref_c2w = self.shells[self.ref_shell_id].cam_to_world
             shell.tracking_ref = self.ref_shell_id
-            shell.cam_to_world = self.shells[self.ref_shell_id].cam_to_world @ shell.cam_to_ref
             shell.aff = aff_init
             self._last_flow = np.zeros(3)
-            return True
+            reloc = self._attempt_relocalization(shell, pyr)
+            if reloc is not None:
+                self.n_relocs += 1
+                shell.relocalized = True
+                shell.cam_to_world = reloc
+                shell.cam_to_ref = np.linalg.inv(ref_c2w) @ reloc
+                return True
+            shell.pose_valid = False
+            shell.cam_to_ref = np.linalg.inv(tries[0])
+            shell.cam_to_world = ref_c2w @ shell.cam_to_ref
+            return True   # the reference hopes to recover; not lost unless NaN
 
         self.last_coarse_rmse = np.where(np.isnan(achieved), 100.0, np.minimum(achieved, 1e9))
         if self.first_coarse_rmse < 0:
             self.first_coarse_rmse = float(achieved[0])
-        t_b = best.t.cpu().numpy().astype(np.float64)
-        shell.cam_to_ref = np.linalg.inv(_se3_np(best.R.cpu().numpy(), t_b))
+        R_b, t_b, aff_b, _, _, flow_b = self._pull_track(best)        # host sync
+        shell.cam_to_ref = np.linalg.inv(_se3_np(R_b, t_b))
         shell.tracking_ref = self.ref_shell_id
         shell.cam_to_world = self.shells[self.ref_shell_id].cam_to_world @ shell.cam_to_ref
-        shell.aff = best.aff.cpu().numpy().astype(np.float64)
-        self._last_flow = best.flow.cpu().numpy().astype(np.float64)
+        shell.aff = aff_b.copy()
+        self._last_flow = flow_b.copy()
         return bool(np.all(np.isfinite(t_b)))
 
+    def _orb_features(self, img):
+        """FAST + grid NMS + rBRIEF of one image (relocalization without the
+        indirect layer)."""
+        score = orb_ops.fast_score(img, float(self.cfg.min_th_fast))
+        u, v, valid = orb_ops.grid_nms(score, 8, 512)
+        ang = orb_ops.ic_angle(img, u, v)
+        return u, v, valid, orb_ops.rbrief(gaussian_blur7(img), u, v, ang)
+
     def _attempt_relocalization(self, shell: Shell, pyr):
-        """BoW + PnP relocalization needs the indirect layer, which is not
-        ported yet: count the attempt and report no pose."""
-        self.n_reloc_unported += 1
-        return None
+        """Pose recovery without the tracker: match the current frame's
+        descriptors against the reference keyframe's, lift the keyframe's
+        keypoints to 3D through the template's inverse depths and solve PnP
+        RANSAC. Returns cam_to_world (4, 4) or None."""
+        if self.template is None or self.ref_slot < 0:
+            return None
+        cfg = self.cfg
+        cur_img = pyr[0][..., 0]
+        if cfg.enable_indirect:
+            # the reference keyframe's features were stored by its kf_step;
+            # looser gates than the window matcher: PnP RANSAC rejects the rest
+            feats = self.feats
+            ku, kv = feats.u[self.ref_slot], feats.v[self.ref_slot]
+            kval, kdesc = feats.valid[self.ref_slot], feats.desc[self.ref_slot]
+            cu, cv, _, _, cdesc, cval = KS.extract_feats(cur_img, cfg)
+            idx, ok = FT.match_pair(kdesc, kval, cdesc, cval, max_dist=80, ratio=0.9)
+        else:
+            ku, kv, kval, kdesc = self._orb_features(
+                self.window.frames.images[self.ref_slot][..., 0])
+            cu, cv, cval, cdesc = self._orb_features(cur_img)
+            idx, ok = orb_ops.match_descriptors(kdesc, cdesc, valid_a=kval, valid_b=cval)
+        if int(ok.sum()) < 15:                                   # host sync
+            return None
+        tpl = self.template
+        tid, dmin = trk_ops.nearest_template_depth(ku, kv, tpl.u[0], tpl.v[0],
+                                                   tpl.idepth[0], tpl.valid[0])
+        valid = ok & (dmin <= 9.0)
+        if int(valid.sum()) < 15:                                # host sync
+            return None
+        fx, fy, cx, cy = self.calib.value.cpu().numpy().astype(np.float64)
+        z = 1.0 / torch.clamp(tid, min=1e-6)
+        X_cam = torch.stack([(ku - cx) / fx * z, (kv - cy) / fy * z, z], -1)
+        T_ref = self.shells[self.ref_shell_id].cam_to_world
+        X_w = X_cam @ self._f32(T_ref[:3, :3]).T + self._f32(T_ref[:3, 3])
+        obs = torch.stack([cu[idx], cv[idx]], -1)
+        K = self._f32([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
+        # seeded with the zero-motion prediction from the reference: the DLT
+        # samples alone degenerate on planar scenes
+        T_pred = np.linalg.inv(T_ref)
+        res = pnp_ops.solve_pnp(X_w, obs, valid, K, seed=shell.id,
+                                init_R=self._f32(T_pred[:3, :3]),
+                                init_t=self._f32(T_pred[:3, 3]))
+        if not bool(res.ok):                                     # host sync
+            return None
+        return np.linalg.inv(_se3_np(res.R.cpu().numpy(), res.t.cpu().numpy()))
 
     def _need_keyframe(self, shell: Shell) -> bool:
         cfg = self.cfg
         if shell.relocalized:
-            return True
+            return True     # re-anchor the map at the recovered pose at once
         flow = self._last_flow
         a_rel = np.exp(shell.aff[0] - self.ref_aff[0]) * (
             shell.exposure / max(self.ref_exposure, 1e-6))
@@ -443,8 +845,9 @@ class SLAMSystem:
     def _process_non_kf(self, shell: Shell, pyr):
         """ProcessNonKeyframe: trace all candidates against this frame, with
         the pose recomputed from the (possibly BA-updated) reference."""
-        if shell.tracking_ref is not None:
-            shell.cam_to_world = self.shells[shell.tracking_ref].cam_to_world @ shell.cam_to_ref
+        with self._shell_lock:
+            if shell.tracking_ref is not None:
+                shell.cam_to_world = self.shells[shell.tracking_ref].cam_to_world @ shell.cam_to_ref
         Tw = np.linalg.inv(shell.cam_to_world)
         tr = KS.trace_candidates(
             self.imm, self.window.frames, self.calib.value, self._f32(Tw[:3, :3]),
@@ -453,16 +856,19 @@ class SLAMSystem:
         self.imm = self.imm._replace(trace=tr)
 
     # ------------------------------------------------------------- keyframe
-    def _add_keyframe(self, shell: Shell, pyr, grads):
-        """AddKeyframe: host policy on the mirrors, the keyframe step, then
-        the bundle-dependent finalization."""
+    def _add_keyframe(self, shell: Shell, pyr, grads, defer: bool = False):
+        """AddKeyframe: host policy on the mirrors, the keyframe step, the
+        tracker reference published at once, then the bundle-dependent
+        finalization (left pending when `defer`, after the init gates)."""
         cfg = self.cfg
         F = cfg.max_frames
+        t0 = _time.perf_counter()
         shell.is_kf = True
         shell.kf_id = self.next_kf_id
         self.next_kf_id += 1
         if shell.tracking_ref is not None:
-            shell.cam_to_world = self.shells[shell.tracking_ref].cam_to_world @ shell.cam_to_ref
+            with self._shell_lock:
+                shell.cam_to_world = self.shells[shell.tracking_ref].cam_to_world @ shell.cam_to_ref
         flagged = self._flag_frames_for_marg(shell)
         flag_mask = np.zeros(F, bool)
         flag_mask[flagged] = True
@@ -479,27 +885,51 @@ class SLAMSystem:
             iters = 15
         sel_u, sel_v, sel_type, sel_valid = self._select_px(
             self.selector_pot, pyr[0], grads, int(cfg.desired_immature_density), shell.id)
+        # indirect-weight schedule: lean on the geometric terms (up to 3x)
+        # when the photometric tracker runs worse than its own baseline
+        if cfg.indirect_weight_schedule and self.first_coarse_rmse > 0:
+            iw_scale = float(np.clip(
+                self.last_coarse_rmse[0] / max(self.first_coarse_rmse, 1e-6), 1.0, 3.0))
+        else:
+            iw_scale = 1.0
         Twc = np.linalg.inv(shell.cam_to_world)
-        window, calib, imm, template, _result, bundle = KS.kf_step(
-            self.window, self.calib, self.imm, pyr, self._f32(Twc[:3, :3]),
+        window, calib, imm, feats, template, _result, bundle = KS.kf_step(
+            self.window, self.calib, self.imm, self.feats, pyr, self._f32(Twc[:3, :3]),
             self._f32(Twc[:3, 3]), self._f32(shell.aff), self._f32(shell.exposure or 1.0),
             slot, shell.kf_id, self.ref_slot, flag_mask, float(self.current_min_act_dist),
-            iters, sel_u, sel_v, sel_type, sel_valid, cfg)
-        self.window, self.calib, self.imm = window, calib, imm
+            iters, sel_u, sel_v, sel_type, sel_valid, cfg, ind_w_scale=iw_scale)
+        self.window, self.calib, self.imm, self.feats = window, calib, imm, feats
         self._K_pyr_cache = k_pyr_from_value(self.calib.value, cfg.pyr_levels)
         self.slot_shell[slot] = shell.id
         self.kf_shell_ids.append(shell.id)
-        self.template, self.ref_slot, self.ref_shell_id = template, slot, shell.id
-        self.ref_aff = np.asarray(shell.aff, np.float64).copy()
-        self.ref_exposure = shell.exposure or 1.0
-        self.first_coarse_rmse = -1.0
-        self._finalize_kf(shell, slot, flag_mask, bundle)
+        # publish the tracker reference now (the coarseTracker_forNewKF
+        # double buffer); the BA-refined affine follows in _finalize_kf
+        ref = (template, slot, shell.id, np.asarray(shell.aff, np.float64).copy(),
+               shell.exposure or 1.0)
+        if self.sequential:
+            (self.template, self.ref_slot, self.ref_shell_id,
+             self.ref_aff, self.ref_exposure) = ref
+            self.first_coarse_rmse = -1.0
+        else:
+            with self._ref_lock:
+                self._pending_ref = ref
+        pending = (shell, slot, flag_mask, bundle, t0)
+        if defer and self.next_kf_id > 4:
+            self._pending_kf_final = pending     # init gates closed
+        else:
+            self._finalize_kf(pending)
 
-    def _finalize_kf(self, shell: Shell, slot: int, flag_mask, bundle):
+    def _finalize_pending_kf(self):
+        if self._pending_kf_final is not None:
+            pending, self._pending_kf_final = self._pending_kf_final, None
+            self._finalize_kf(pending)
+
+    def _finalize_kf(self, pending):
         """The policy pull: init/lost gates, shell poses, policy mirrors,
-        connectivity, selector density adaptation."""
+        selector density adaptation, the reference's BA-refined affine."""
         cfg = self.cfg
         F = cfg.max_frames
+        shell, slot, flag_mask, bundle, t0 = pending
         b = KS.KFBundle(*[x.cpu().numpy() for x in bundle])         # host sync
         rmse = float(b.rmse)
         nkf = self.next_kf_id
@@ -513,12 +943,13 @@ class SLAMSystem:
             self.is_lost = True
             return
         published = b.valid | flag_mask
-        for s in range(F):
-            if not published[s] or self.slot_shell[s] is None:
-                continue
-            sh = self.shells[self.slot_shell[s]]
-            sh.cam_to_world = np.linalg.inv(_se3_np(b.Rwc[s], b.twc[s]))
-            sh.aff = np.asarray(b.aff[s], np.float64).copy()
+        with self._shell_lock:
+            for s in range(F):
+                if not published[s] or self.slot_shell[s] is None:
+                    continue
+                sh = self.shells[self.slot_shell[s]]
+                sh.cam_to_world = np.linalg.inv(_se3_np(b.Rwc[s], b.twc[s]))
+                sh.aff = np.asarray(b.aff[s], np.float64).copy()
         self._m_valid = np.asarray(b.valid).copy()
         self._m_kfid = np.asarray(b.kf_id, np.int64)
         self._m_t = np.asarray(b.twc, np.float64)
@@ -527,17 +958,25 @@ class SLAMSystem:
         self._m_nact_host = np.asarray(b.n_active_host, np.int64)
         self._m_nimm_host = np.asarray(b.n_imm_host, np.int64)
         self._m_n_active = int(b.n_active)
+        self.ind_obs_history.append(int(b.n_ind))
+        self.kf_full_latencies.append(_time.perf_counter() - t0)
         for s in range(F):
             if flag_mask[s]:
                 self.slot_shell[s] = None
                 self._marg_counts[s] = 0
             elif int(b.removed_host[s]):
                 self._marg_counts[s] = self._marg_counts.get(s, 0) + int(b.removed_host[s])
-        have = max(int(b.sel_count), 1)
-        ideal = self.selector_pot * np.sqrt(have / cfg.desired_immature_density)
-        self.selector_pot = min(self._POT_LADDER, key=lambda p: abs(p - ideal))
-        if self.ref_shell_id == shell.id:
-            self.ref_aff = np.asarray(b.aff[slot], np.float64).copy()
+        if not cfg.use_fast:
+            have = max(int(b.sel_count), 1)
+            ideal = self.selector_pot * np.sqrt(have / cfg.desired_immature_density)
+            self.selector_pot = min(self._POT_LADDER, key=lambda p: abs(p - ideal))
+        aff_ba = np.asarray(b.aff[slot], np.float64).copy()
+        with self._ref_lock:
+            if self._pending_ref is not None and self._pending_ref[2] == shell.id:
+                pr = self._pending_ref
+                self._pending_ref = (pr[0], pr[1], pr[2], aff_ba, pr[4])
+            elif self.ref_shell_id == shell.id:
+                self.ref_aff = aff_ba
 
     def _adapt_act_dist(self):
         """Density feedback on currentMinActDist (Mapping.cpp:332-351)."""
@@ -609,6 +1048,7 @@ class SLAMSystem:
         cfg = self.cfg
         self.window = W.empty_window(cfg, self.height, self.width, device=self.device)
         self.imm = KS.empty_imm(cfg, device=self.device)
+        self.feats = FT.empty_feats(cfg.max_frames, cfg.max_kf_features, device=self.device)
         self._m_valid[:] = False
         self._m_kfid[:] = -1
         self._m_nact_host[:] = 0
@@ -621,6 +1061,8 @@ class SLAMSystem:
         self.slot_shell = [None] * cfg.max_frames
         self.next_kf_id = 0
         self.template = None
+        with self._ref_lock:
+            self._pending_ref = None
         self.ref_slot = -1
         self.first_coarse_rmse = -1.0
         self.last_coarse_rmse = np.full(5, 100.0)

@@ -59,6 +59,27 @@ def build_direct_pyramid_plain(image: torch.Tensor, n_levels: int,
     return levels, grads
 
 
+_BLUR7 = (0.070766, 0.131305, 0.190776, 0.214305, 0.190776, 0.131305, 0.070766)
+
+
+def gaussian_blur7(img: torch.Tensor) -> torch.Tensor:
+    """7x7 sigma=2 separable Gaussian with edge padding (cv::GaussianBlur
+    (7, 7, 2, 2) before rBRIEF sampling), summed tap by tap in the JAX
+    package's order."""
+    k = torch.tensor(_BLUR7, dtype=img.dtype, device=img.device)
+    k = k / k.sum()
+    H, W = img.shape
+    padded = torch.cat([img[:1].expand(3, W), img, img[-1:].expand(3, W)], dim=0)
+    out = torch.zeros_like(img)
+    for i in range(7):
+        out = out + padded[i:i + H] * k[i]
+    padded = torch.cat([out[:, :1].expand(H, 3), out, out[:, -1:].expand(H, 3)], dim=1)
+    out2 = torch.zeros_like(img)
+    for i in range(7):
+        out2 = out2 + padded[:, i:i + W] * k[i]
+    return out2
+
+
 def _kernel():
     global _fn
     if _fn is None:

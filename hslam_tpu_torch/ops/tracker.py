@@ -1,6 +1,7 @@
 """Coarse frame-to-keyframe direct image alignment (port of
-hslam_tpu/ops/tracker.py: build_template, _residual_pass, track_coarse,
-score_hypotheses, track_coarse_multi).
+hslam_tpu/ops/tracker.py: nearest_template_depth, build_template,
+_residual_pass, track_coarse, score_hypotheses, track_coarse_multi,
+motion_hypotheses_device and the fused per-frame track_step).
 
 Semantics follow the JAX package line by line; what changes is control
 flow. The JAX `lax.while_loop`s (cutoff doubling, the per-level LM loop)
@@ -18,8 +19,10 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from ..config import Config, SCALE_A, SCALE_B, SCALE_XI_ROT, SCALE_XI_TRANS
+from ..models.calib import k_pyr_from_value
 from ..utils import lie
 from ..utils.interp import pack_cells
+from .pyramid import build_direct_pyramid
 
 # tracker preconditioner, ordering [trans(3), rot(3), a, b] (the reference's
 # rot/trans scale swap, see the JAX module docstring)
@@ -34,6 +37,16 @@ class Template(NamedTuple):
     idepth: List[torch.Tensor]
     color: List[torch.Tensor]
     valid: List[torch.Tensor]    # (C_l,) bool
+
+
+def nearest_template_depth(ku, kv, tu, tv, tid, tval):
+    """Nearest valid template point per keypoint (the depth lift of
+    relocalization and the keyframe bundle). Returns (idepth (K,), squared
+    pixel distance (K,)); callers gate on the distance (<= 9 px^2)."""
+    d2 = (ku[:, None] - tu[None, :]) ** 2 + (kv[:, None] - tv[None, :]) ** 2
+    d2 = torch.where(tval[None, :], d2, torch.full_like(d2, 1e12))
+    nn = d2.argmin(dim=1)                  # the first minimum, as jnp.argmin
+    return tid[nn], d2.amin(dim=1)
 
 
 def rel_affine(exp_ref, exp_new, aff_ref, aff_new):
@@ -418,3 +431,91 @@ def track_coarse_multi(template: Template, target_pyr: List[torch.Tensor],
                        min_res_for_abort=min_res_for_abort,
                        packed_pyr=packed_pyr)
     return res._replace(ok=res.ok & torch.isfinite(scores[best])), best
+
+
+def _rigid_inv(T: torch.Tensor) -> torch.Tensor:
+    """Inverse of a rigid 4x4 (or batch of them)."""
+    Rt = T[..., :3, :3].transpose(-1, -2)
+    Ti = torch.zeros_like(T)
+    Ti[..., :3, :3] = Rt
+    Ti[..., :3, 3] = -(Rt @ T[..., :3, 3:4])[..., 0]
+    Ti[..., 3, 3] = 1.0
+    return Ti
+
+
+# the reference's 26 small-rotation perturbations (System.cpp:374-405)
+_ROT_AXES = [(1, 0, 0), (0, 1, 0), (0, 0, 1), (-1, 0, 0), (0, -1, 0), (0, 0, -1),
+             (1, 1, 0), (0, 1, 1), (1, 0, 1), (-1, 1, 0), (0, -1, 1), (-1, 0, 1),
+             (1, -1, 0), (0, 1, -1), (1, 0, -1), (-1, -1, 0), (0, -1, -1), (-1, 0, -1),
+             (-1, -1, -1), (-1, -1, 1), (-1, 1, -1), (-1, 1, 1), (1, -1, -1), (1, -1, 1),
+             (1, 1, -1), (1, 1, 1)]
+
+
+def _se3_4x4(R, t):
+    T = torch.eye(4, dtype=R.dtype, device=R.device).repeat(R.shape[:-2] + (1, 1))
+    T[..., :3, :3] = R
+    T[..., :3, 3] = t
+    return T
+
+
+def motion_hypotheses_device(ref_c2w, prev_c2w, prevprev_c2w, have_motion,
+                             rot: float = 0.02, dt_ratio=None):
+    """The reference's motion-hypothesis list built on the device from the
+    last two camera poses: constant, double and half motion (the twist
+    scaled by the timestamp-gap ratio `dt_ratio`), zero motion from the last
+    frame and from the reference, and 26 rotation perturbations of the
+    constant-motion guess. refToNew as (32, 3, 3), (32, 3); all identity
+    when `have_motion` is False."""
+    dev = ref_c2w.device
+    fh2slast = _rigid_inv(prevprev_c2w) @ prev_c2w
+    T_ls = _rigid_inv(prev_c2w) @ ref_c2w
+    r = torch.ones((), device=dev) if dt_ratio is None else torch.as_tensor(
+        dt_ratio, dtype=torch.float32, device=dev)
+    xi = lie.se3_log(fh2slast[:3, :3], fh2slast[:3, 3])
+    f = torch.stack([-r, -2.0 * r, -0.5 * r])
+    Rf, tf = lie.se3_exp(f[:, None] * xi[None])
+    fwd = _se3_4x4(Rf, tf)                     # exp(f xi) for the three f
+    base = fwd[0] @ T_ls
+    quats = torch.cat([torch.ones((26, 1), device=dev),
+                       rot * torch.tensor(_ROT_AXES, dtype=torch.float32, device=dev)], 1)
+    quats = quats / torch.linalg.norm(quats, dim=1, keepdim=True)
+    R_pert = lie.quat_to_rot(torch.cat([quats[:, 1:], quats[:, :1]], 1))
+    pert = _se3_4x4(R_pert, torch.zeros((26, 3), device=dev))
+    eye = torch.eye(4, device=dev)
+    T_all = torch.cat([torch.stack([base, fwd[1] @ T_ls, fwd[2] @ T_ls, T_ls, eye]),
+                       base @ pert, base[None]], 0)                 # (32, 4, 4)
+    T_all = torch.where(torch.as_tensor(have_motion, device=dev), T_all, eye.expand(32, 4, 4))
+    return T_all[:, :3, :3], T_all[:, :3, 3]
+
+
+class TrackStepOut(NamedTuple):
+    pyr: List[torch.Tensor]
+    grads: List[torch.Tensor]
+    R: torch.Tensor                 # (3, 3) refToNew
+    t: torch.Tensor
+    aff: torch.Tensor
+    ok: torch.Tensor
+    residuals: torch.Tensor
+    flow: torch.Tensor
+    c2w: torch.Tensor               # (4, 4) new camToWorld
+
+
+def track_step(template: Template, img: torch.Tensor, calib_value, ref_c2w,
+               prev_c2w, prevprev_c2w, have_motion, aff0, exp_ref, exp_new,
+               aff_ref, cfg: Config, n_levels: int,
+               gamma_grad_weight: Optional[torch.Tensor] = None,
+               dt_ratio=None) -> TrackStepOut:
+    """One per-frame tracking step: pyramid (the CUDA kernel on a CUDA
+    image), device-side motion hypotheses, batched coarsest-level scoring
+    and the coarse-to-fine LM. `img` may be uint8; c2w feeds the next
+    frame's hypotheses without a host round trip. `gamma_grad_weight`
+    re-weights the gradient maps (photometric calibration)."""
+    K_pyr = k_pyr_from_value(calib_value, n_levels)
+    pyr, grads = build_direct_pyramid(img, n_levels, gamma_grad_weight)
+    R_b, t_b = motion_hypotheses_device(ref_c2w, prev_c2w, prevprev_c2w, have_motion,
+                                        dt_ratio=dt_ratio)
+    res, _ = track_coarse_multi(template, pyr, K_pyr, R_b, t_b, aff0, exp_ref, exp_new,
+                                aff_ref, cfg, coarsest_lvl=n_levels - 1)
+    c2w = ref_c2w @ _rigid_inv(_se3_4x4(res.R, res.t))
+    return TrackStepOut(pyr=pyr, grads=grads, R=res.R, t=res.t, aff=res.aff, ok=res.ok,
+                        residuals=res.residuals, flow=res.flow, c2w=c2w)

@@ -32,6 +32,12 @@ def close(a, b, rel, name=""):
     np.testing.assert_allclose(a, b, atol=rel * max(np.abs(b).max(), 1.0), err_msg=name)
 
 
+def _jax_ba_optimize(wnd, calib, cfg, n_iter, **kw):
+    """The JAX package's ba_optimize inside one jit, as its kf_step runs it
+    (compiled once, not op by op)."""
+    return jax.jit(lambda w, c, **k: jopt.ba_optimize(w, c, cfg, n_iter, **k))(wnd, calib, **kw)
+
+
 @pytest.fixture(scope="module")
 def synth():
     wnd, calib, cfg = make_synthetic_window()
@@ -152,7 +158,7 @@ def test_ba_optimize_matches():
     pert = np.zeros((4, 8), np.float32)
     pert[1:, :6] = rng.normal(0, 0.004, (3, 6))
     wnd, calib, cfg, _ = make_rendered_window(pert=jnp.asarray(pert))
-    rj = jopt.ba_optimize(wnd, calib, cfg, 6)
+    rj = _jax_ba_optimize(wnd, calib, cfg, 6)
     rt = topt.ba_optimize(port(wnd), port(calib), cfg, 6)
     np.testing.assert_array_equal(rt.window.points.res_state.numpy(),
                                   np.asarray(rj.window.points.res_state))
@@ -260,7 +266,7 @@ def test_ba_optimize_with_frozen_set_matches():
     freeze = active & (jnp.arange(cfg.max_points) % 2 == 0)[:, None]
     AH, AT = jba.compute_adjoints(wnd.frames)
     fj = jba.fix_linearization(lj, wnd.frames, calib, wnd.points.host, freeze, AH, AT)
-    rj = jopt.ba_optimize(wnd, calib, cfg, 3, frozen=fj)
+    rj = _jax_ba_optimize(wnd, calib, cfg, 3, frozen=fj)
     rt = topt.ba_optimize(port(wnd), port(calib), cfg, 3, frozen=port(fj))
     plain = topt.ba_optimize(port(wnd), port(calib), cfg, 3)
     # the tolerances of test_ba_optimize_matches (the gauge's f32 conditioning)
@@ -315,3 +321,104 @@ def test_marginalize_points_matches(synth):
     assert float(np.abs(np.asarray(oj.HM)).max()) > 0
     close(ot.HM, oj.HM, 1e-4, "HM")
     close(ot.bM, oj.bM, 1e-4, "bM")
+
+
+def _with_indirect(wnd, calib, cfg, seed=11, frac=0.6, noise=0.8):
+    """tests/test_ba.py::TestIndirectFactors' observations: matched keypoints
+    near the points' projections on a random subset of the residual grid."""
+    P, F = cfg.max_points, cfg.max_frames
+    lin0 = jba.linearize(wnd.frames, wnd.points, calib, cfg)
+    key = jax.random.PRNGKey(seed)
+    nz = jax.random.normal(key, (P, F, 2)) * noise
+    pts = wnd.points._replace(
+        ind_u=(lin0.center_u + nz[..., 0]).astype(jnp.float32),
+        ind_v=(lin0.center_v + nz[..., 1]).astype(jnp.float32),
+        ind_w=jnp.full((P, F), 25.0, jnp.float32),
+        ind_valid=jax.random.uniform(jax.random.fold_in(key, 1), (P, F)) < frac)
+    return wnd._replace(points=pts)
+
+
+def test_linearize_indirect_matches(synth):
+    wnd, calib, cfg = synth
+    wnd = _with_indirect(wnd, calib, cfg)
+    lj = jba.linearize(wnd.frames, wnd.points, calib, cfg)
+    lt = tba.linearize(port(wnd.frames), port(wnd.points), port(calib), cfg)
+    ok = np.asarray(lj.ind_ok)
+    assert ok.sum() > 20
+    np.testing.assert_array_equal(lt.ind_ok.numpy(), ok)
+    close(lt.ind_res.numpy()[ok], np.asarray(lj.ind_res)[ok], 1e-5, "ind_res")
+    close(lt.ind_wgt.numpy()[ok], np.asarray(lj.ind_wgt)[ok], 1e-6, "ind_wgt")
+    close(lt.ind_energy.numpy()[ok], np.asarray(lj.ind_energy)[ok], 1e-5, "ind_energy")
+
+
+def test_accumulate_indirect_matches(synth):
+    """The BA's indirect reprojection terms with live observations: the port
+    against the JAX package, and the indirect part alone against the f64
+    dense assembly of tests/test_ba.py."""
+    wnd, calib, cfg = synth
+    wnd = _with_indirect(wnd, calib, cfg)
+    F = cfg.max_frames
+    lj = jba.linearize(wnd.frames, wnd.points, calib, cfg)
+    grid = _grid(wnd.points, wnd.frames, F)
+    active = grid & (lj.new_state == JW.RES_IN)
+    ind_active = lj.ind_ok & grid
+    assert int(ind_active.sum()) > 20
+    AHj, ATj = jba.compute_adjoints(wnd.frames)
+    sj = jba.accumulate(lj, active, wnd.points.host, AHj, ATj, F, ind_active=ind_active)
+    args = (port(lj), port(active), port(wnd.points.host), port(AHj), port(ATj), F)
+    st = tba.accumulate(*args, ind_active=port(ind_active))
+    s0 = tba.accumulate(*args)
+    for name in ("H", "b", "Hdd", "bd", "g", "num_res"):
+        close(getattr(st, name), getattr(sj, name), 2e-5, name)
+    # the indirect contribution alone, against f64 numpy (test_ba.py oracle)
+    ln = jax.tree_util.tree_map(lambda x: np.asarray(x, np.float64), jax.device_get(lj))
+    ia, host = np.asarray(ind_active), np.asarray(wnd.points.host)
+    AH, AT = np.asarray(AHj, np.float64), np.asarray(ATj, np.float64)
+    P = ia.shape[0]
+    D = CPARS + 8 * F
+    H = np.zeros((D, D))
+    b = np.zeros(D)
+    Hdd = np.zeros(P)
+    for p, f in zip(*np.nonzero(ia)):
+        hs = host[p]
+        J = np.zeros((2, D))
+        J[:, :CPARS] = ln.Jpdc[p, f]
+        J_rel = np.zeros((2, 8))
+        J_rel[:, :6] = ln.Jpdxi[p, f]
+        J[:, CPARS + 8 * hs:CPARS + 8 * hs + 8] += J_rel @ AH[hs, f].T
+        J[:, CPARS + 8 * f:CPARS + 8 * f + 8] += J_rel @ AT[hs, f].T
+        w, r = ln.ind_wgt[p, f], ln.ind_res[p, f]
+        H += w * J.T @ J
+        b += w * J.T @ r
+        Hdd[p] += w * ln.Jpdd[p, f] @ ln.Jpdd[p, f]
+    close(st.H.numpy().astype(np.float64) - s0.H.numpy(), H, 3e-4, "dH oracle")
+    close(st.b.numpy().astype(np.float64) - s0.b.numpy(), b, 3e-4, "db oracle")
+    close(st.Hdd.numpy().astype(np.float64) - s0.Hdd.numpy(), Hdd, 2e-4, "dHdd oracle")
+
+
+def test_ba_optimize_indirect_matches():
+    """ba_optimize with ground-truth keypoint observations on every residual
+    (tests/test_ba.py::test_indirect_improves_pose_recovery's window), port
+    against the JAX package; the indirect terms must move the solution."""
+    rng = np.random.default_rng(3)
+    pert = np.zeros((4, 8), np.float32)
+    pert[1:, :6] = rng.normal(0, 0.004, (3, 6))
+    wnd, calib, cfg, _ = make_rendered_window(pert=jnp.asarray(pert))
+    P, F = cfg.max_points, cfg.max_frames
+    lin_gt = jba.linearize(wnd.frames._replace(state=jnp.zeros((F, 8), jnp.float32)),
+                           wnd.points, calib, cfg)
+    wnd_ind = wnd._replace(points=wnd.points._replace(
+        ind_u=lin_gt.center_u, ind_v=lin_gt.center_v,
+        ind_w=jnp.full((P, F), 25.0, jnp.float32), ind_valid=jnp.ones((P, F), bool)))
+    rj = _jax_ba_optimize(wnd_ind, calib, cfg, 6)
+    rt = topt.ba_optimize(port(wnd_ind), port(calib), cfg, 6)
+    plain = topt.ba_optimize(port(wnd), port(calib), cfg, 6)
+    np.testing.assert_array_equal(rt.window.points.res_state.numpy(),
+                                  np.asarray(rj.window.points.res_state))
+    # the tolerances of test_ba_optimize_matches (the gauge's f32 conditioning)
+    np.testing.assert_allclose(rt.window.frames.state.numpy(),
+                               np.asarray(rj.window.frames.state), atol=2e-3)
+    np.testing.assert_allclose(rt.window.points.idepth.numpy(),
+                               np.asarray(rj.window.points.idepth), atol=2e-3)
+    close(rt.rmse, rj.rmse, 1e-3, "rmse")
+    assert (rt.window.frames.state - plain.window.frames.state).abs().max() > 1e-6

@@ -55,15 +55,11 @@ SLICE = dict(enable_indirect=False, init_direct_refine=False)
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(cfg=dict(enable_indirect=True, init_direct_refine=False)),
-    dict(cfg=dict(enable_indirect=False, init_direct_refine=True)),
-    dict(cfg=dict(SLICE, use_fast=True)),
     dict(cfg=SLICE, enable_loop_closure=True),
     dict(cfg=SLICE, online_photo_calib=True),
-    dict(cfg=SLICE, sequential=False),
     dict(cfg=SLICE, dist_mesh=object()),
-], ids=["indirect", "init_refine", "use_fast", "loop_closure", "photo_calib",
-        "pipelined", "dist_mesh"])
+    dict(cfg=SLICE, metrics_path="metrics.jsonl"),
+], ids=["loop_closure", "photo_calib", "dist_mesh", "metrics_stream"])
 def test_system_refuses_unported_options(kwargs):
     from hslam_tpu_torch.models.system import SLAMSystem
     kw = dict(enable_loop_closure=False)
@@ -71,3 +67,19 @@ def test_system_refuses_unported_options(kwargs):
     cfg = tcfg.Config(**kw.pop("cfg"))
     with pytest.raises(NotImplementedError):
         SLAMSystem(80.0, 80.0, 63.5, 47.5, 128, 96, cfg, **kw)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(cfg=dict(enable_indirect=True, init_direct_refine=False)),
+    dict(cfg=dict(enable_indirect=False, init_direct_refine=True)),
+    dict(cfg=dict(SLICE, use_fast=True)),
+    dict(cfg=SLICE, sequential=False),
+], ids=["indirect", "init_refine", "use_fast", "pipelined"])
+def test_system_accepts_ported_options(kwargs):
+    """The ported options construct a system, which closes cleanly."""
+    from hslam_tpu_torch.models.system import SLAMSystem
+    kw = dict(enable_loop_closure=False)
+    kw.update(kwargs)
+    cfg = tcfg.Config(**kw.pop("cfg"))
+    slam = SLAMSystem(80.0, 80.0, 63.5, 47.5, 128, 96, cfg, **kw)
+    slam.close()

@@ -1,6 +1,7 @@
-"""Card-only tests of the port's CUDA kernel: the hand-written pyramid
-kernel against its plain torch version on the same CUDA tensors, and the
-wrapper's refusals. Every test here needs a CUDA device and skips without
+"""Card-only tests of the port: the hand-written pyramid kernel against its
+plain torch version on the same CUDA tensors, the wrapper's refusals, and
+the hybrid modules (features, matching, init refinement, PnP, the fused
+track_step) on CUDA against the CPU. Every test here needs a CUDA device and skips without
 one. The file imports no jax, so on a GPU host without jax it runs without
 tests/conftest.py (which imports jax):
 
@@ -71,3 +72,117 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
         P.build_direct_pyramid(img, 2, torch.ones(255, device=cuda_device))
     with pytest.raises(ValueError):            # more levels than the image has
         P.build_direct_pyramid(img[:4, :4].contiguous(), 4)
+
+
+# ------------------------------------------------- hybrid modules, CUDA vs CPU
+def _scene_pair(h=96, w=128, fx=80.0):
+    from hslam_tpu_torch.io.synthetic import Scene, se3_exp_np
+    sc = Scene(h, w, fx, n_blobs=16)
+    R, t = se3_exp_np(np.array([0.03, 0.01, 0.0, 0.003, -0.004, 0.002]))
+    a = np.round(sc.render(np.eye(3), np.zeros(3))).astype(np.float32)
+    b = np.round(sc.render(R, t)).astype(np.float32)
+    return a, b, R, t
+
+
+@pytest.mark.gpu
+def test_features_and_matching_cuda_vs_cpu(cuda_device):
+    from hslam_tpu_torch.ops import features as FT
+    a, b, _, _ = _scene_pair()
+    outs = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        ea = FT.extract_multiscale(torch.from_numpy(a).to(dev), 4, 256, 8.0)
+        eb = FT.extract_multiscale(torch.from_numpy(b).to(dev), 4, 256, 8.0)
+        outs[dev.type] = [x.cpu() for x in ea] + [x.cpu() for x in eb]
+    c, g = outs["cpu"], outs["cuda"]
+    for k in (0, 6):
+        cu, cv, cl, _, cd, cval = c[k:k + 6]
+        gu, gv, gl, _, gd, gval = g[k:k + 6]
+        assert torch.equal(cval, gval) and int(cval.sum()) > 100
+        same = (cu == gu) & (cv == gv) & (cl == gl)
+        assert bool(same[cval].all())
+        assert torch.equal(cd[same], gd[same])
+    # matching the CPU descriptors on both devices: integer work, identical
+    mi_c, mok_c = FT.match_pair(c[4], c[5], c[10], c[11])
+    mi_g, mok_g = FT.match_pair(*(x.to(cuda_device) for x in (c[4], c[5], c[10], c[11])))
+    assert torch.equal(mok_c, mok_g.cpu()) and int(mok_c.sum()) > 30
+    assert torch.equal(mi_c, mi_g.cpu())
+
+
+@pytest.mark.gpu
+def test_pnp_and_init_refine_cuda_vs_cpu(cuda_device):
+    from hslam_tpu_torch.config import Config
+    from hslam_tpu_torch.ops.init_refine import direct_refine
+    from hslam_tpu_torch.ops.pnp import pnp_samples, solve_pnp
+    from hslam_tpu_torch.ops.pyramid import build_direct_pyramid
+    from hslam_tpu_torch.utils import lie
+    a, b, R, t = _scene_pair()
+    rng = np.random.default_rng(1)
+    P = 128
+    u = rng.uniform(8, 120, P).astype(np.float32)
+    v = rng.uniform(8, 88, P).astype(np.float32)
+    id0 = (0.5 * (1 + 0.15 * rng.standard_normal(P))).astype(np.float32)
+    tri = rng.uniform(size=P) < 0.7
+    xi0 = (np.array([0.03, 0.01, 0.0, 0.003, -0.004, 0.002])
+           * (1 + 0.1 * rng.standard_normal(6))).astype(np.float32)
+    X = np.stack([rng.uniform(-2, 2, 100), rng.uniform(-1.5, 1.5, 100),
+                  rng.uniform(3, 8, 100)], -1).astype(np.float32)
+    Xc = X @ R.T + t
+    obs = np.stack([80 * Xc[:, 0] / Xc[:, 2] + 64, 80 * Xc[:, 1] / Xc[:, 2] + 48], -1)
+    obs = (obs + rng.normal(0, 0.3, obs.shape)).astype(np.float32)
+    samples = pnp_samples(torch.ones(100, dtype=torch.bool), 64, 3)
+    res = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        pa, _ = build_direct_pyramid(torch.from_numpy(a).to(dev), 1)
+        pb, _ = build_direct_pyramid(torch.from_numpy(b).to(dev), 1)
+        R0, t0 = lie.se3_exp(torch.from_numpy(xi0).to(dev))
+        r = direct_refine(pa[0], pb[0], torch.from_numpy(u).to(dev), torch.from_numpy(v).to(dev),
+                          torch.ones(P, dtype=torch.bool, device=dev),
+                          torch.from_numpy(id0).to(dev), torch.from_numpy(tri).to(dev), R0, t0,
+                          torch.tensor([80.0, 80.0, 63.5, 47.5], device=dev), Config())
+        K = torch.tensor([[80.0, 0, 64], [0, 80.0, 48], [0, 0, 1]], device=dev)
+        p = solve_pnp(torch.from_numpy(X).to(dev), torch.from_numpy(obs).to(dev),
+                      torch.ones(100, dtype=torch.bool, device=dev), K,
+                      samples=samples.to(dev))
+        res[dev.type] = [x.cpu() for x in (r.R, r.t, p.R, p.t, p.ok)]
+    for c, g in zip(res["cpu"], res["cuda"]):
+        torch.testing.assert_close(g.float(), c.float(), rtol=0, atol=1e-4)
+    assert bool(res["cuda"][4])
+
+
+@pytest.mark.gpu
+def test_track_step_launches_the_kernel(cuda_device):
+    """track_step on a uint8 CUDA frame builds its pyramid with the kernel
+    (one launch per level) and agrees with the CPU run."""
+    from hslam_tpu_torch.config import Config
+    from hslam_tpu_torch.ops import tracker as T
+    a, b, R, t = _scene_pair()
+    cfg = Config(pyr_levels=3, tracker_iters_per_level=(6, 10, 10))
+    rng = np.random.default_rng(4)
+    gy, gx = np.mgrid[6:90:3, 6:122:3]
+    u = gx.ravel().astype(np.float32)
+    v = gy.ravel().astype(np.float32)
+    w = rng.uniform(0.5, 2.0, u.size).astype(np.float32)
+    frame = np.clip(b, 0, 255).astype(np.uint8)
+    out = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        pyr, _ = P.build_direct_pyramid(torch.from_numpy(a).to(dev), 3)
+        tpl = T.build_template(*(torch.from_numpy(x).to(dev) for x in (u, v)),
+                               torch.full((u.size,), 0.5, device=dev),
+                               torch.from_numpy(w).to(dev),
+                               torch.ones(u.size, dtype=torch.bool, device=dev), pyr)
+        eye = torch.eye(4, device=dev)
+        one = torch.tensor(1.0, device=dev)
+        launches = P.kernel_launches
+        o = T.track_step(tpl, torch.from_numpy(frame).to(dev),
+                         torch.tensor([80.0, 80.0, 63.5, 47.5], device=dev), eye, eye, eye,
+                         False, torch.zeros(2, device=dev), one, one,
+                         torch.zeros(2, device=dev), cfg, 3)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert P.kernel_launches == launches + 3
+        out[dev.type] = [x.cpu() for x in (o.R, o.t, o.ok)]
+    assert bool(out["cpu"][2]) and bool(out["cuda"][2])
+    # f32 reductions in another order on the card (chip_smoke.py phase 4)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=0, atol=1e-4)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(out["cuda"][1].numpy(), t, atol=3e-3)

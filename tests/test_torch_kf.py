@@ -1,7 +1,9 @@
 """The keyframe-path modules of hslam_tpu_torch against the JAX package:
 selector (with the JAX draws fed in), distance map, epipolar trace,
-activation, two-view (with the JAX RANSAC samples fed in) and one whole
-direct-only kf_step from the same state, KFBundle compared field by field.
+activation, two-view (with the JAX RANSAC samples fed in), indirect
+association, the keypoint-hosted candidate insert, and whole kf_steps
+(direct-only and hybrid) from the same state, KFBundle compared field by
+field.
 
 The kf_step comparison patches the JAX package's `scatter_update` inside
 this test with the documented "j-th valid candidate -> j-th free slot"
@@ -21,10 +23,10 @@ from hslam_tpu.models import window as jw
 from hslam_tpu.ops import activation as jact
 from hslam_tpu.ops import distmap as jdist
 from hslam_tpu.ops import epipolar as jepi
+from hslam_tpu.ops import features as jft
 from hslam_tpu.ops import selector as jsel
 from hslam_tpu.ops import tracker as jtrk
 from hslam_tpu.ops import twoview as jtv
-from hslam_tpu.ops.features import empty_feats
 from hslam_tpu.ops.pyramid import build_direct_pyramid as jpyr
 from hslam_tpu_torch.config import Config
 from hslam_tpu_torch.convert import to_numpy
@@ -49,7 +51,8 @@ CFG_KW = dict(max_frames=6, max_points=512, max_immature=512, max_features=512,
 CFG, JCFG = Config(**CFG_KW), JConfig(**CFG_KW)
 
 _JAX_TYPES = {c.__name__: c for c in (jw.Window, jw.Frames, jw.Points, jks.Imm,
-                                      jepi.TraceState, jtrk.Template, jcalib.Calib)}
+                                      jepi.TraceState, jtrk.Template, jcalib.Calib,
+                                      jft.Feats)}
 
 
 def to_jax(tree):
@@ -199,6 +202,13 @@ def _documented_scatter_update(arr, slots, write, values):
     return ext.at[idx].set(values.astype(arr.dtype))[:S]
 
 
+def _jax_kf_step(*args, cfg, **kw):
+    """The JAX package's kf_step inside one jit, as its system runs it (a
+    fresh function each call, so no trace made under a test's patch is
+    shared with another caller)."""
+    return jax.jit(lambda *a, **k: jks.kf_step(*a, cfg=cfg, **k))(*args, **kw)
+
+
 @pytest.fixture(scope="module")
 def kf_state():
     """A port-made state one frame before a keyframe step (frame 9 of the
@@ -246,12 +256,14 @@ def test_kf_step_bundle_matches(kf_state, monkeypatch):
     common = dict(slot=s["slot"], kf_id=slam.next_kf_id, ref_slot=slam.ref_slot,
                   act_dist=float(slam.current_min_act_dist), n_iter=6)
     sel_t = s["sel"]
-    tout = tks.kf_step(slam.window, slam.calib, slam.imm, s["pyr"], _t(s["R"]), _t(s["t"]),
+    tout = tks.kf_step(slam.window, slam.calib, slam.imm, slam.feats, s["pyr"], _t(s["R"]),
+                       _t(s["t"]),
                        _t(s["aff"]), torch.tensor(1.0), common["slot"], common["kf_id"],
                        common["ref_slot"], s["flag"], common["act_dist"], 6, *sel_t, CFG)
-    jout = jks.kf_step(
+    jout = _jax_kf_step(
         to_jax(slam.window), to_jax(slam.calib), to_jax(slam.imm),
-        empty_feats(CFG.max_frames, CFG.max_kf_features), [jnp.asarray(_n(p)) for p in s["pyr"]],
+        jft.empty_feats(CFG.max_frames, CFG.max_kf_features),
+        [jnp.asarray(_n(p)) for p in s["pyr"]],
         jnp.asarray(s["R"]), jnp.asarray(s["t"]), jnp.asarray(s["aff"]), jnp.float32(1.0),
         jnp.int32(common["slot"]), jnp.int32(common["kf_id"]), jnp.int32(common["ref_slot"]),
         jnp.asarray(s["flag"]), jnp.float32(common["act_dist"]), jnp.int32(6),
@@ -270,9 +282,120 @@ def test_kf_step_bundle_matches(kf_state, monkeypatch):
     np.testing.assert_allclose(tb.aff, _n(jb.aff), atol=1e-3)
     np.testing.assert_allclose(tb.calib_value, _n(jb.calib_value), rtol=1e-5)
     # the new tracking template: same pixels, same depths
-    tt, jt = to_numpy(tout[3]), jax.device_get(jout[4])
+    tt, jt = to_numpy(tout[4]), jax.device_get(jout[4])
     for lvl in range(CFG.pyr_levels):
         np.testing.assert_array_equal(tt.valid[lvl], _n(jt.valid[lvl]))
         np.testing.assert_array_equal(tt.u[lvl], _n(jt.u[lvl]))
         m = _n(jt.valid[lvl])
         np.testing.assert_allclose(tt.idepth[lvl][m], _n(jt.idepth[lvl])[m], rtol=2e-3)
+
+
+# ---------------------------------------------------------------- hybrid layer
+CFG_H_KW = dict(CFG_KW, enable_indirect=True, init_direct_refine=True)
+CFG_H, JCFG_H = Config(**CFG_H_KW), JConfig(**CFG_H_KW)
+
+
+@pytest.fixture(scope="module")
+def hybrid_state():
+    """A port-made hybrid state (the default indirect layer and init
+    refinement) one frame before a keyframe step, plus the step's inputs."""
+    frames, _ = make_sequence(Scene(H, W, FX, n_blobs=16), 10, lambda i: sweep_xi(i / 10.0))
+    slam = SLAMSystem(FX, FX, W / 2 - 0.5, H / 2 - 0.5, W, H, CFG_H, enable_loop_closure=False)
+    for i, f in enumerate(frames[:9]):
+        slam.process_frame(f, 0.1 * i)
+    assert slam.initialized and slam.next_kf_id >= 3
+    assert sum(slam.ind_obs_history) > 0
+    pyr, grads = build_direct_pyramid(_t(frames[9]), 3)
+    shell = slam.shells[-1]
+    Twc = np.linalg.inv(shell.cam_to_world)
+    flag = np.zeros(CFG.max_frames, bool)
+    flag[slam._flag_frames_for_marg(shell)] = True
+    slot = int(np.flatnonzero(~slam._m_valid)[0])
+    sel = slam._select_px(slam.selector_pot, pyr[0], grads, 300, 9)
+    return dict(slam=slam, pyr=pyr, R=Twc[:3, :3].astype(np.float32),
+                t=Twc[:3, 3].astype(np.float32), aff=shell.aff.astype(np.float32),
+                slot=slot, flag=flag, sel=sel)
+
+
+@pytest.mark.parametrize("w_scale", [None, 2.5], ids=["unscaled", "scaled"])
+def test_indirect_associate_matches(hybrid_state, w_scale):
+    slam = hybrid_state["slam"]
+    slot = slam.ref_slot
+    jw_ = jks.indirect_associate(to_jax(slam.window), to_jax(slam.feats), jnp.int32(slot), JCFG_H,
+                                 ind_w_scale=None if w_scale is None else jnp.float32(w_scale))
+    tw = tks.indirect_associate(slam.window, slam.feats, slot, CFG_H, ind_w_scale=w_scale)
+    jp, tp = jax.device_get(jw_.points), to_numpy(tw.points)
+    assert jp.ind_valid[:, slot].sum() > 10
+    np.testing.assert_array_equal(tp.ind_valid, jp.ind_valid)
+    np.testing.assert_array_equal(tp.ind_u, jp.ind_u)
+    np.testing.assert_array_equal(tp.ind_v, jp.ind_v)
+    # weight / 1.2 ** (2 level): a power evaluated by each library
+    np.testing.assert_allclose(tp.ind_w, jp.ind_w, rtol=1e-6)
+
+
+def test_insert_keypoint_hosted_traces(monkeypatch):
+    """Keypoint-hosted candidates carry their keypoint index; selector picks
+    carry -1; invalid ones are skipped (with C1 repaired on the JAX side)."""
+    monkeypatch.setattr(jks, "scatter_update", _documented_scatter_update)
+    img = Scene(H, W, FX, n_blobs=16).render(np.eye(3), np.zeros(3))
+    dir0 = _n(jpyr(jnp.asarray(img), 1)[0][0])
+    rng = np.random.default_rng(8)
+    C = 40
+    u = rng.uniform(10, W - 10, C).astype(np.float32)
+    v = rng.uniform(10, H - 10, C).astype(np.float32)
+    typ = np.ones(C, np.int32)
+    valid = rng.uniform(size=C) > 0.3
+    kp = np.where(np.arange(C) < 25, np.arange(C), -1).astype(np.int32)
+    args = (u, v, typ, valid)
+    ji = jks.insert_new_traces(jks.empty_imm(JCFG), jnp.int32(2), *(jnp.asarray(a) for a in args),
+                               jnp.asarray(dir0), JCFG, sel_kp=jnp.asarray(kp))
+    ti = tks.insert_new_traces(tks.empty_imm(CFG), 2, *(_t(a) for a in args), _t(dir0), CFG,
+                               sel_kp=_t(kp))
+    np.testing.assert_array_equal(ti.valid.numpy(), _n(ji.valid))
+    np.testing.assert_array_equal(ti.kp_idx.numpy(), _n(ji.kp_idx))
+    np.testing.assert_array_equal(ti.u.numpy(), _n(ji.u))
+    n = int(valid.sum())
+    np.testing.assert_array_equal(ti.kp_idx.numpy()[:n], kp[valid])
+    np.testing.assert_array_equal(ti.host.numpy()[:n], 2)
+
+
+def test_kf_step_hybrid_bundle_matches(hybrid_state, monkeypatch):
+    """One hybrid kf_step from the same converted state: feature extraction,
+    indirect association (n_ind), keypoint-hosted inserts and the keypoint
+    depth lift agree exactly; the BA (now with indirect factors) to the
+    tolerances of the direct-only test."""
+    monkeypatch.setattr(jks, "scatter_update", _documented_scatter_update)
+    s = hybrid_state
+    slam = s["slam"]
+    slot, kf_id, ref_slot = s["slot"], slam.next_kf_id, slam.ref_slot
+    act = float(slam.current_min_act_dist)
+    tout = tks.kf_step(slam.window, slam.calib, slam.imm, slam.feats, s["pyr"], _t(s["R"]),
+                       _t(s["t"]), _t(s["aff"]), torch.tensor(1.0), slot, kf_id, ref_slot,
+                       s["flag"], act, 6, *s["sel"], CFG_H, ind_w_scale=1.5)
+    jout = _jax_kf_step(
+        to_jax(slam.window), to_jax(slam.calib), to_jax(slam.imm), to_jax(slam.feats),
+        [jnp.asarray(_n(p)) for p in s["pyr"]], jnp.asarray(s["R"]), jnp.asarray(s["t"]),
+        jnp.asarray(s["aff"]), jnp.float32(1.0), jnp.int32(slot), jnp.int32(kf_id),
+        jnp.int32(ref_slot), jnp.asarray(s["flag"]), jnp.float32(act), jnp.int32(6),
+        *(to_jax(x) for x in s["sel"]), cfg=JCFG_H, ind_w_scale=jnp.float32(1.5))
+    tf_, jf_ = to_numpy(tout[3]), jax.device_get(jout[3])
+    for name in ("u", "v", "level", "desc", "valid"):
+        np.testing.assert_array_equal(getattr(tf_, name)[slot], getattr(jf_, name)[slot],
+                                      err_msg=name)
+    # scores at resized pyramid levels carry the resize's f32 differences
+    np.testing.assert_allclose(tf_.score[slot], jf_.score[slot], rtol=1e-6)
+    tb, jb = to_numpy(tout[-1]), jax.device_get(jout[-1])
+    exact = ("valid", "kf_id", "n_active", "n_active_host", "n_imm_host", "sel_count",
+             "removed_host", "conn_active", "conn_marg", "n_ind", "kp_depth_ok")
+    for name in exact:
+        np.testing.assert_array_equal(getattr(tb, name), _n(getattr(jb, name)), err_msg=name)
+    assert int(tb.n_ind) > 10
+    m = _n(jb.kp_depth_ok)
+    assert m.sum() > 10
+    np.testing.assert_allclose(tb.kp_idepth[m], _n(jb.kp_idepth)[m], rtol=2e-3)
+    np.testing.assert_allclose(tb.rmse, _n(jb.rmse), rtol=1e-3)
+    np.testing.assert_allclose(tb.twc, _n(jb.twc), atol=2e-4)
+    ti, ji = to_numpy(tout[2]), jax.device_get(jout[2])
+    np.testing.assert_array_equal(ti.valid, ji.valid)
+    np.testing.assert_array_equal(ti.kp_idx, ji.kp_idx)
+    assert (ti.kp_idx[ti.valid & (ti.host == slot)] >= 0).sum() > 10

@@ -51,7 +51,7 @@ def test_slice_matches_jax_outcome(quantize):
     assert ts.next_kf_id >= 3
     assert abs(ts.next_kf_id - js.next_kf_id) <= 1, (ts.next_kf_id, js.next_kf_id)
     assert len(tv) == N_FRAMES and len(jv) == N_FRAMES
-    assert ts.n_reloc_unported == 0
+    assert ts.n_relocs == 0
     ate_j = ate_rmse(centres[jv], jest)
     ate_t = ate_rmse(centres[tv], test)
     # scene depth 2.0: both are millimetre-level on this sequence

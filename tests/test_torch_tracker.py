@@ -1,6 +1,7 @@
 """hslam_tpu_torch.ops.tracker and ops.klt against the JAX package, from the
 same numpy inputs: template build, one residual pass, batched hypothesis
 scoring, the full coarse-to-fine track, and KLT's pure-translation case."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,6 +29,12 @@ CFG_KW = dict(tracker_iters_per_level=(6, 10, 10), pyr_levels=LEVELS)
 def _t(x, dtype=None):
     t = torch.from_numpy(np.array(x))
     return t if dtype is None else t.to(dtype)
+
+
+def _jit(fn, **static):
+    """A JAX function inside one jit with its static arguments bound, as
+    the JAX package's system runs it (and compiled once, not op by op)."""
+    return jax.jit(lambda *a, **k: fn(*a, **static, **k))
 
 
 @pytest.fixture(scope="module")
@@ -146,10 +153,10 @@ def test_score_hypotheses_match(scene):
 
 def test_track_coarse_multi_matches(scene):
     Rb, tb, aff0, e_ref, e_new, aff_ref = _track_args(scene)
-    jres, jbest = jtrk.track_coarse_multi(
+    jres, jbest = _jit(jtrk.track_coarse_multi, cfg=JConfig(**CFG_KW))(
         scene["jtemplate"], [jnp.asarray(p) for p in scene["tgt_pyr"]],
         jnp.asarray(scene["K_pyr"]), jnp.asarray(Rb), jnp.asarray(tb), jnp.asarray(aff0),
-        jnp.float32(e_ref), jnp.float32(e_new), jnp.asarray(aff_ref), JConfig(**CFG_KW))
+        jnp.float32(e_ref), jnp.float32(e_new), jnp.asarray(aff_ref))
     tres, tbest = ttrk.track_coarse_multi(
         _port_template(scene), [_t(p) for p in scene["tgt_pyr"]], _t(scene["K_pyr"]),
         _t(Rb), _t(tb), _t(aff0), torch.tensor(e_ref), torch.tensor(e_new), _t(aff_ref),
@@ -189,3 +196,75 @@ def test_klt_pure_translation():
     # 30 fixed GN steps per level on the same patches: f32 agreement
     np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), atol=1e-3)
     np.testing.assert_allclose(t_err.numpy(), np.asarray(j_err), atol=1e-3)
+
+
+def test_nearest_template_depth_matches():
+    rng = np.random.default_rng(6)
+    ku, kv = (rng.uniform(0, 100, 40).astype(np.float32) for _ in range(2))
+    tu, tv = (rng.uniform(0, 100, 300).astype(np.float32) for _ in range(2))
+    tid = rng.uniform(0.2, 2.0, 300).astype(np.float32)
+    tval = rng.uniform(size=300) > 0.3
+    jd, jd2 = jtrk.nearest_template_depth(*(jnp.asarray(x) for x in (ku, kv, tu, tv, tid, tval)))
+    td, td2 = ttrk.nearest_template_depth(*(_t(x) for x in (ku, kv, tu, tv, tid, tval)))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    np.testing.assert_allclose(td2.numpy(), np.asarray(jd2), rtol=1e-6)
+    # brute force: the nearest valid point, its depth
+    d2 = (ku[:, None] - tu[None]) ** 2 + (kv[:, None] - tv[None]) ** 2
+    d2[:, ~tval] = np.inf
+    np.testing.assert_array_equal(td.numpy(), tid[np.argmin(d2, 1)])
+
+
+def _c2w(xi):
+    R, t = se3_exp_np(np.asarray(xi, np.float64))
+    T = np.eye(4)
+    T[:3, :3], T[:3, 3] = R, t
+    return np.linalg.inv(T).astype(np.float32)
+
+
+@pytest.mark.parametrize("have_motion,dt_ratio", [(True, 1.0), (True, 2.7), (False, 1.0)],
+                         ids=["const", "dt_ratio", "no_motion"])
+def test_motion_hypotheses_device_matches(have_motion, dt_ratio):
+    ref = _c2w([0.01, 0.0, 0.0, 0.0, 0.01, 0.0])
+    prev = _c2w([0.05, -0.01, 0.02, 0.01, 0.02, -0.004])
+    prevprev = _c2w([0.03, -0.005, 0.01, 0.006, 0.012, -0.002])
+    jR, jt = jtrk.motion_hypotheses_device(
+        jnp.asarray(ref), jnp.asarray(prev), jnp.asarray(prevprev), jnp.bool_(have_motion),
+        dt_ratio=jnp.float32(dt_ratio))
+    tR, tt = ttrk.motion_hypotheses_device(_t(ref), _t(prev), _t(prevprev), have_motion,
+                                           dt_ratio=dt_ratio)
+    assert tR.shape == (32, 3, 3) and tt.shape == (32, 3)
+    # products of 4x4s and a log/exp of the motion twist in f32
+    np.testing.assert_allclose(tR.numpy(), np.asarray(jR), atol=2e-6)
+    np.testing.assert_allclose(tt.numpy(), np.asarray(jt), atol=2e-6)
+    if not have_motion:
+        np.testing.assert_array_equal(tR.numpy(), np.broadcast_to(np.eye(3), (32, 3, 3)))
+
+
+def test_track_step_matches(scene):
+    """The fused step from one state: pyramid of a uint8 frame, device-side
+    hypotheses, scoring and the coarse-to-fine LM, in both packages."""
+    sc = Scene(H, W, FX, n_blobs=16)
+    R, t = se3_exp_np(np.array([0.03, -0.01, 0.02, 0.004, -0.006, 0.002]))
+    img = np.clip(np.round(sc.render(R, t)), 0, 255).astype(np.uint8)
+    ref = np.eye(4, dtype=np.float32)
+    prev = _c2w([0.02, -0.007, 0.013, 0.003, -0.004, 0.0013])
+    prevprev = _c2w([0.01, -0.0035, 0.0065, 0.0015, -0.002, 0.0007])
+    K = np.array([FX, FX, W / 2 - 0.5, H / 2 - 0.5], np.float32)
+    aff0 = np.zeros(2, np.float32)
+    common = (np.float32(1.0), np.float32(1.0), np.zeros(2, np.float32))
+    jo = _jit(jtrk.track_step, cfg=JConfig(**CFG_KW), n_levels=LEVELS)(
+        scene["jtemplate"], jnp.asarray(img), jnp.asarray(K), jnp.asarray(ref),
+        jnp.asarray(prev), jnp.asarray(prevprev), jnp.bool_(True), jnp.asarray(aff0),
+        *(jnp.asarray(c) for c in common), dt_ratio=jnp.float32(1.5))
+    to = ttrk.track_step(_port_template(scene), _t(img), _t(K), _t(ref), _t(prev), _t(prevprev),
+                         True, _t(aff0), *(_t(c) for c in common), Config(**CFG_KW),
+                         LEVELS, dt_ratio=1.5)
+    for a, b in zip(to.pyr, jo.pyr):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4)
+    assert bool(to.ok) == bool(jo.ok) and bool(to.ok)
+    np.testing.assert_allclose(to.R.numpy(), np.asarray(jo.R), atol=1e-4)
+    np.testing.assert_allclose(to.t.numpy(), np.asarray(jo.t), atol=1e-4)
+    np.testing.assert_allclose(to.c2w.numpy(), np.asarray(jo.c2w), atol=1e-4)
+    np.testing.assert_allclose(to.residuals.numpy(), np.asarray(jo.residuals), rtol=1e-3)
+    # and the rendered motion is recovered (c2w of the worldToCam (R, t))
+    np.testing.assert_allclose(to.t.numpy(), t, atol=2e-3)
