@@ -4,14 +4,22 @@
 
 Phases (each failure is fatal; nothing falls back to the CPU):
   1. environment: card name and power limit, torch/CUDA versions, TF32 off;
-  2. build the CUDA pyramid kernel from csrc/ with nvcc;
-  3. kernel vs its plain torch version on the card (480x640, 481x643,
-     uint8 input, with/without a gamma weight), timed with CUDA events;
+  2. build the CUDA pyramid kernels (the fused one and the per-level
+     yardstick, one library) from csrc/ with nvcc, printing what ptxas
+     says of each;
+  3. the fused kernel vs its plain torch version on the card (seven shapes
+     from 1x1 to 1100x1500, uint8 and float32, 1 to 8 levels, with/without a
+     gamma weight), then timed for the main path's call (480x640 uint8, 6
+     levels) in turns with the per-level kernel and the plain version: the
+     call (CUDA events around the wrapper) and the kernels alone (spans of
+     back-to-back launches, warm and with a 64 MB write before each), held
+     against the memory bound;
   4. device parity: the coarse tracker and one windowed BA from the same
      state on CUDA and on the CPU;
   5. the direct-only path: SLAMSystem.process_frame on the card over 60
      frames of the 640x480 synthetic arc with bench.py's capacities, checked
-     for initialization, keyframes, lost frames, ATE and kernel launches;
+     for initialization, keyframes, lost frames, ATE and kernel launches (one
+     per pyramid);
   6. hybrid device parity: feature extraction, matching, the init
      refinement and PnP on one 480x640 frame, on CUDA and on the CPU;
   7. the main path: the default (hybrid) configuration through
@@ -75,9 +83,17 @@ def phase_build():
     from hslam_tpu_torch import _cuda
     from hslam_tpu_torch.ops import pyramid as P
     t0 = time.perf_counter()
-    P._kernel()
-    log(f"[build] pyramid.cu built+loaded in {time.perf_counter() - t0:.2f}s "
-        f"(nvcc {_cuda.build_seconds.get('pyramid', 0.0):.2f}s)")
+    P._kernels()
+    log(f"[build] pyramid.cu (fused + per-level entries) built+loaded in "
+        f"{time.perf_counter() - t0:.2f}s (nvcc {_cuda.build_seconds.get('pyramid', 0.0):.2f}s)")
+    lines = _cuda.ptxas_log["pyramid"].splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and "pyramid_" in line:
+            name = "fused<uint8>" if "fused_kernelIh" in line else (
+                "fused<float32>" if "fused_kernelIf" in line else "per-level")
+            used = " ".join(x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
+                            if "Used" in x or "spill" in x)
+            log(f"[build] ptxas {name}: {used}")
 
 
 def _cuda_ms(fn, reps=50, warm=5):
@@ -96,38 +112,158 @@ def _cuda_ms(fn, reps=50, warm=5):
     return float(np.median(times))
 
 
+def _span_ms(fn, n):
+    """Device time per call of fn: CUDA events around n back-to-back calls,
+    enqueued while the card is kept busy (a ~20 ms spin kernel first), so
+    that the span holds the device's work and not the host's enqueueing.
+    Keep n calls below the depth of CUDA's launch queue (~1000 operations)."""
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+# shapes of phase 3: the main path's frame, odd sizes (scalar stores, ragged
+# tiles), sizes below one tile, and one whose level 4 does not fit the last
+# block's shared memory (the tail then goes through device memory)
+KERNEL_SHAPES = [(480, 640), (481, 643), (1, 1), (3, 5), (65, 67), (7, 130), (1100, 1500)]
+H100_BYTES_PER_S = 3.35e12       # HBM3, NVIDIA's data sheet (SXM)
+
+
+def _max_levels(H, W):
+    return min(8, int(np.log2(min(H, W))) + 1)
+
+
 def phase_kernel():
     from hslam_tpu_torch.ops import pyramid as P
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
     gw = torch.linspace(0.5, 1.5, 256).to(dev)
-    worst = 0.0
-    cases = [("f32", 480, 640), ("f32", 481, 643), ("u8", 480, 640)]
-    for kind, H, W in cases:
+    worst, n_cases = 0.0, 0
+    for H, W in KERNEL_SHAPES:
         base = torch.rand((H, W), generator=g) * 255.0
-        img = (base.round().to(torch.uint8) if kind == "u8" else base).to(dev)
-        for weight in (None, gw):
-            lv, gr = P.build_direct_pyramid(img, 6, weight)
-            torch.cuda.synchronize()
-            lp, gp = P.build_direct_pyramid_plain(img.float(), 6, weight)
-            err_lv = max(float((a - b).abs().max()) for a, b in zip(lv, lp))
-            err_g2 = max(float((a - b).abs().max()) for a, b in zip(gr, gp))
-            for a, b in zip(gr, gp):
-                torch.testing.assert_close(a, b, rtol=G2_RTOL, atol=G2_ATOL)
-            if err_lv > LEVEL_ATOL:
-                raise AssertionError(f"pyramid levels differ by {err_lv} > {LEVEL_ATOL}")
-            worst = max(worst, err_lv, err_g2)
-            log(f"[kernel] {kind} {H}x{W} gamma={weight is not None}: "
-                f"max|d levels|={err_lv:.3g} max|d g2|={err_g2:.3g}")
-    # time the main path's call: uint8 640x480 frame -> 6-level pyramid
+        top = _max_levels(H, W)
+        depths = sorted({1, 3, 4, min(6, top), top} & set(range(1, top + 1)))
+        for kind in ("f32", "u8"):
+            img = (base.round().to(torch.uint8) if kind == "u8" else base).to(dev)
+            for n in depths:
+                for weight in (None, gw):
+                    lv, gr = P.build_direct_pyramid(img, n, weight)
+                    torch.cuda.synchronize()
+                    lp, gp = P.build_direct_pyramid_plain(img.float(), n, weight)
+                    err_lv = max(float((a - b).abs().max()) for a, b in zip(lv, lp))
+                    err_g2 = max(float((a - b).abs().max()) for a, b in zip(gr, gp))
+                    for a, b in zip(lv + gr, lp + gp):
+                        if a.shape != b.shape or not a.is_contiguous():
+                            raise AssertionError(f"pyramid view {tuple(a.shape)} vs "
+                                                 f"{tuple(b.shape)} at {H}x{W} n={n}")
+                    for a, b in zip(gr, gp):
+                        torch.testing.assert_close(a, b, rtol=G2_RTOL, atol=G2_ATOL)
+                    if not err_lv <= LEVEL_ATOL:
+                        raise AssertionError(f"pyramid levels differ by {err_lv} > {LEVEL_ATOL} "
+                                             f"at {kind} {H}x{W} n={n}")
+                    worst = max(worst, err_lv, err_g2)
+                    n_cases += 1
+            log(f"[kernel] {kind} {H}x{W} levels {depths} with/without gamma: "
+                f"worst so far max|d|={worst:.3g}")
+    # the per-level yardstick computes the same function
+    img = (torch.rand((480, 640), generator=g) * 255).to(torch.uint8).to(dev)
+    lv, gr = P.build_direct_pyramid(img, 6, gw)
+    lo, go = P.build_direct_pyramid_cuda_per_level(img, 6, gw)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(lv + gr, lo + go))
+    log(f"[kernel] {n_cases} cases agree with the plain version; fused == per-level "
+        f"bit for bit at 480x640 uint8 with gamma: {same}")
+    if not same:
+        raise AssertionError("fused and per-level kernels differ")
+
+    # ---- timing, the main path's call: uint8 480x640 frame -> 6-level pyramid
     frame = (torch.rand((480, 640), generator=g) * 255).to(torch.uint8).to(dev)
-    plain_a = _cuda_ms(lambda: P.build_direct_pyramid_plain(frame.float(), 6))
-    kern_a = _cuda_ms(lambda: P.build_direct_pyramid(frame, 6))
-    kern_b = _cuda_ms(lambda: P.build_direct_pyramid(frame, 6))
-    plain_b = _cuda_ms(lambda: P.build_direct_pyramid_plain(frame.float(), 6))
-    log(f"[kernel] 480x640 uint8 6 levels, median of 50 (plain, kernel, kernel, plain): "
-        f"{plain_a:.4f} {kern_a:.4f} {kern_b:.4f} {plain_b:.4f} ms")
-    return worst, min(kern_a, kern_b), min(plain_a, plain_b)
+    lay = P.pyramid_layout(480, 640, 6)
+    n_bytes = frame.numel() * frame.element_size() + 16 * sum(h * w for h, w in lay.shapes)
+    bound_ms = 1e3 * n_bytes / H100_BYTES_PER_S
+    runs = {"plain": lambda: P.build_direct_pyramid_plain(frame.float(), 6),
+            "per_level": lambda: P.build_direct_pyramid_cuda_per_level(frame, 6),
+            "fused": lambda: P.build_direct_pyramid(frame, 6)}
+    order = ("plain", "per_level", "fused", "fused", "per_level", "plain")
+    call = [(k, _cuda_ms(runs[k])) for k in order]
+    log("[kernel] 480x640 uint8 6 levels, call_ms, CUDA events around the wrapper, median of "
+        "50, in turns: " + " ".join(f"{k} {t:.4f}" for k, t in call))
+    call_ms = {k: min(t for kk, t in call if kk == k) for k in runs}
+
+    # the kernels alone: back-to-back launches into preallocated buffers
+    buf = torch.empty(lay.total, dtype=torch.float32, device=dev)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    f32 = frame.float()
+    lvl_bufs = [(torch.empty((h, w, 3), device=dev), torch.empty((h, w), device=dev),
+                 torch.empty((h // 2, w // 2), device=dev)) for h, w in lay.shapes]
+    _, level_fn = P._kernels()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def per_level_into():
+        # the cast and the six launches of the earlier design, nothing allocated
+        src = f32.copy_(frame)
+        for (o3, g2, down) in lvl_bufs:
+            level_fn(src.data_ptr(), o3.data_ptr(), g2.data_ptr(), down.data_ptr(), None,
+                     o3.shape[0], o3.shape[1], stream)
+            src = down
+
+    def fused_into():
+        P.launch_pyramid(frame, buf, 6)
+
+    def cold(fn):
+        def run():
+            flush.fill_(1)      # 64 MB written: the 50 MB L2 holds nothing of the frame
+            fn()
+        return run
+
+    dev_ms = {}
+    # launches per span: 200 of the fused kernel; 100 of the per-level design,
+    # which is 7 kernels a call (8 with the write before it)
+    for name, fn, n in (("per_level", per_level_into, 100), ("fused", fused_into, 200)):
+        for _ in range(20):
+            fn()
+        warm = [_span_ms(fn, n) for _ in range(5)]
+        flush_only = [_span_ms(lambda: flush.fill_(1), n) for _ in range(5)]
+        with_flush = [_span_ms(cold(fn), n) for _ in range(5)]
+        dev_ms[name] = (float(np.median(warm)),
+                        float(np.median(with_flush)) - float(np.median(flush_only)))
+        log(f"[kernel] {name}: device_ms {dev_ms[name][0]:.5f} (5 spans of {n} calls: "
+            f"{' '.join(f'{t:.5f}' for t in warm)}); device_ms_cold {dev_ms[name][1]:.5f} "
+            f"(with a 64 MB write before each launch {float(np.median(with_flush)):.5f}, "
+            f"the write alone {float(np.median(flush_only)):.5f})")
+    # where the fused kernel's time goes: the launch floor (a 1x1 image) and
+    # the frame at 1, 3, 4 (no hand-over) and 6 levels (hand-over and tail)
+    dot = torch.zeros((1, 1), dtype=torch.uint8, device=dev)
+    depth_ms = {"1x1": float(np.median([_span_ms(lambda: P.launch_pyramid(dot, buf, 1), 200)
+                                        for _ in range(3)]))}
+    for n in (1, 3, 4, 6):
+        depth_ms[str(n)] = float(np.median(
+            [_span_ms(lambda: P.launch_pyramid(frame, buf, n), 200) for _ in range(3)]))
+    log("[kernel] fused device_ms by depth: " + " ".join(
+        f"{k} {v:.5f}" for k, v in depth_ms.items()) + " (1x1: one block, one level)")
+    lv2, gr2 = P.pyramid_views(buf, lay)
+    lp, gp = P.build_direct_pyramid_plain(frame.float(), 6)
+    if not all(torch.equal(a, b) for a, b in zip(lv2, lp)):
+        raise AssertionError("the timed launches left a wrong pyramid")
+    device_ms, device_ms_cold = dev_ms["fused"]
+    share = bound_ms / device_ms
+    log(f"[kernel] bound_ms {bound_ms:.5f} ({n_bytes} B at 3.35 TB/s); share_of_bound "
+        f"{share:.4f} warm, {bound_ms / device_ms_cold:.4f} cold; per-level kernels alone "
+        f"{dev_ms['per_level'][0]:.5f} warm, {dev_ms['per_level'][1]:.5f} cold")
+    if not 0.0 < share <= 1.0:
+        raise AssertionError(f"share_of_bound {share} is not in (0, 1]")
+    return dict(max_abs_err=worst, ms=device_ms, call_ms=call_ms["fused"],
+                device_ms=device_ms, device_ms_cold=device_ms_cold, bound_ms=bound_ms,
+                bound_by="bytes", share_of_bound=share, per_level_ms=call_ms["per_level"],
+                per_level_device_ms=dev_ms["per_level"][0], plain_ms=call_ms["plain"],
+                library_ms=None)
 
 
 def _small_state():
@@ -143,7 +279,8 @@ def _small_state():
                  init_direct_refine=False)
     frames, _ = make_sequence(Scene(96, 128, 80.0, n_blobs=16), 9,
                               lambda i: sweep_xi(i / 10.0))
-    slam = SLAMSystem(80.0, 80.0, 63.5, 47.5, 128, 96, cfg, enable_loop_closure=False)
+    slam = SLAMSystem(80.0, 80.0, 63.5, 47.5, 128, 96, cfg, enable_loop_closure=False,
+                      device="cpu")
     for i, f in enumerate(frames[:8]):
         slam.process_frame(f, 0.1 * i)
     if not slam.initialized or slam.next_kf_id < 2:
@@ -244,8 +381,8 @@ def phase_main_path(card):
         failures.append("relocalization was needed")
     if not ate <= bar:
         failures.append(f"ATE {ate} above {bar}")
-    if launches != SEQ_FRAMES * cfg.pyr_levels or plain != 0:
-        failures.append(f"kernel launches {launches} (want {SEQ_FRAMES * cfg.pyr_levels}), "
+    if launches != SEQ_FRAMES or plain != 0:
+        failures.append(f"kernel launches {launches} (want {SEQ_FRAMES}, one per pyramid), "
                         f"plain calls {plain}")
     if failures:
         raise AssertionError("main path: " + "; ".join(failures))
@@ -428,8 +565,8 @@ def phase_pipelined(card):
         failures.append(f"ATE {ate} above {bar}")
     if sum(slam.ind_obs_history) <= 0:
         failures.append("no indirect observation reached the BA")
-    if launches != builds * cfg.pyr_levels or plain != 0:
-        failures.append(f"kernel launches {launches} (want {builds * cfg.pyr_levels}), "
+    if launches != builds or plain != 0:
+        failures.append(f"kernel launches {launches} (want {builds}, one per pyramid), "
                         f"plain calls {plain}")
     if failures:
         raise AssertionError("pipelined main path: " + "; ".join(failures))
@@ -475,17 +612,17 @@ def phase_relocalization(card):
 def main():
     card = phase_environment()
     phase_build()
-    err, ms, plain_ms = phase_kernel()
+    kernel = phase_kernel()
     phase_parity()
     launches = phase_main_path(card)
     phase_hybrid_parity()
     launches += phase_pipelined(card)
     launches += phase_relocalization(card)
     log(json.dumps({"kernels": [{
-        "name": "pyramid_level", "route": "cuda",
+        "name": "pyramid_fused", "route": "cuda",
         "source": "hslam_tpu_torch/csrc/pyramid.cu",
         "replaces": "hslam_tpu/ops/pallas_kernels.py:38",
-        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}]}))
+        "launches": launches, **kernel}]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

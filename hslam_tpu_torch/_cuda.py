@@ -5,7 +5,9 @@ Each library is compiled from `csrc/<name>.cu` for sm_90a into
 `_build/lib<name>-<hash>.so`, where the hash covers the source and the
 flags: a changed source builds anew, an unchanged one loads the existing
 library. The build writes to a temporary name and renames it into place,
-so concurrent first uses never load a half-written file.
+so concurrent first uses never load a half-written file. What ptxas says
+of each kernel (registers, shared memory, spills) is kept beside the
+library and in `ptxas_log`.
 """
 from __future__ import annotations
 
@@ -21,11 +23,12 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
 build_seconds: dict = {}      # name -> seconds spent in nvcc (0.0: cached)
+ptxas_log: dict = {}          # name -> nvcc's stderr of the build (ptxas -v)
 
 
 def _nvcc() -> str:
@@ -55,8 +58,12 @@ def load(name: str) -> ctypes.CDLL:
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
+            with open(so + ".ptxas.txt", "w") as f:
+                f.write(proc.stderr)
             os.replace(tmp, so)
         build_seconds[name] = time.perf_counter() - t0
+        with open(so + ".ptxas.txt") as f:
+            ptxas_log[name] = f.read()
         lib = ctypes.CDLL(so)
         _LIBS[name] = lib
         return lib

@@ -168,7 +168,7 @@ class SLAMSystem:
                  enable_loop_closure: bool = True, sequential: bool = True,
                  online_photo_calib: bool = False, dist_mesh=None,
                  metrics_path: Optional[str] = None,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         unported = {
             "enable_loop_closure=True": enable_loop_closure,
             "online_photo_calib=True": online_photo_calib,
@@ -181,6 +181,10 @@ class SLAMSystem:
                 "not ported to hslam_tpu_torch yet: " + ", ".join(bad))
         self.cfg = cfg
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"SLAMSystem runs on device={str(device)!r} and no CUDA device is "
+                "available; pass device=\"cpu\" to run on the CPU, as the tests do")
         self.calib = make_calib(fx, fy, cx, cy, width, height, device=self.device)
         self.width, self.height = width, height
         self.n_relocs = 0            # successful PnP relocalizations

@@ -66,7 +66,7 @@ def test_system_refuses_unported_options(kwargs):
     kw.update(kwargs)
     cfg = tcfg.Config(**kw.pop("cfg"))
     with pytest.raises(NotImplementedError):
-        SLAMSystem(80.0, 80.0, 63.5, 47.5, 128, 96, cfg, **kw)
+        SLAMSystem(80.0, 80.0, 63.5, 47.5, 128, 96, cfg, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -81,5 +81,5 @@ def test_system_accepts_ported_options(kwargs):
     kw = dict(enable_loop_closure=False)
     kw.update(kwargs)
     cfg = tcfg.Config(**kw.pop("cfg"))
-    slam = SLAMSystem(80.0, 80.0, 63.5, 47.5, 128, 96, cfg, **kw)
+    slam = SLAMSystem(80.0, 80.0, 63.5, 47.5, 128, 96, cfg, device="cpu", **kw)
     slam.close()

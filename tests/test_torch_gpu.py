@@ -32,35 +32,118 @@ def _img(h, w, seed):
     return np.random.default_rng(seed).uniform(0.0, 255.0, (h, w)).astype(np.float32)
 
 
+SHAPES = [(480, 640), (481, 643), (1, 1), (3, 5), (65, 67), (7, 130), (1100, 1500)]
+
+
+def _depth(h, w):
+    return min(P.MAX_LEVELS, int(np.log2(min(h, w))) + 1)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(480, 640), (481, 643), (1, 1), (3, 5)])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
 @pytest.mark.parametrize("gamma", [False, True], ids=["plain", "gamma"])
-def test_kernel_matches_plain_on_card(cuda_device, shape, gamma):
-    img = torch.from_numpy(_img(*shape, seed=11)).to(cuda_device)
+def test_kernel_matches_plain_on_card(cuda_device, shape, dtype, gamma):
+    """Every depth the shape has: without a tail (up to 4 levels), with it,
+    and the sizes below one tile; 1100x1500 takes the tail through device
+    memory. One kernel launch per pyramid."""
+    base = _img(*shape, seed=11)
+    img = torch.from_numpy(np.round(base).astype(np.uint8) if dtype == "uint8" else base)
+    img = img.to(cuda_device)
     gw = (torch.linspace(0.5, 1.5, 256, device=cuda_device) if gamma else None)
-    n = 6 if shape[0] > 100 else 1
-    launches, plain = P.kernel_launches, P.plain_calls
-    lv, gr = P.build_direct_pyramid(img, n, gw)
-    torch.cuda.synchronize()
-    assert P.kernel_launches == launches + n and P.plain_calls == plain
-    lp, gp = P.build_direct_pyramid_plain(img, n, gw)
-    for a, b in zip(lv, lp):
-        assert a.shape == b.shape
-        torch.testing.assert_close(a, b, rtol=0.0, atol=LEVEL_ATOL)
-    for a, b in zip(gr, gp):
-        torch.testing.assert_close(a, b, rtol=G2_RTOL, atol=G2_ATOL)
+    for n in range(1, _depth(*shape) + 1):
+        launches, plain = P.kernel_launches, P.plain_calls
+        lv, gr = P.build_direct_pyramid(img, n, gw)
+        torch.cuda.synchronize()
+        assert P.kernel_launches == launches + 1 and P.plain_calls == plain
+        lp, gp = P.build_direct_pyramid_plain(img.float(), n, gw)
+        for a, b in zip(lv, lp):
+            assert a.shape == b.shape and a.is_contiguous()
+            torch.testing.assert_close(a, b, rtol=0.0, atol=LEVEL_ATOL)
+        for a, b in zip(gr, gp):
+            assert a.shape == b.shape and a.is_contiguous()
+            torch.testing.assert_close(a, b, rtol=G2_RTOL, atol=G2_ATOL)
 
 
 @pytest.mark.gpu
 def test_uint8_frame_is_cast_then_launched(cuda_device):
+    """A uint8 frame goes to the kernel as it is (converted on load), in one
+    launch, and gives the float32 frame's pyramid."""
     img = torch.from_numpy(np.round(_img(48, 64, 2)).astype(np.uint8)).to(cuda_device)
     launches = P.kernel_launches
     lv, gr = P.build_direct_pyramid(img, 3)
     torch.cuda.synchronize()
-    assert P.kernel_launches == launches + 3
+    assert P.kernel_launches == launches + 1
     lp, gp = P.build_direct_pyramid_plain(img.float(), 3)
     for a, b in zip(lv + gr, lp + gp):
         torch.testing.assert_close(a, b, rtol=G2_RTOL, atol=LEVEL_ATOL)
+    lf, gf = P.build_direct_pyramid(img.float(), 3)
+    assert all(torch.equal(a, b) for a, b in zip(lv + gr, lf + gf))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(480, 640), (481, 643), (65, 67)], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_fused_per_level_and_plain_agree(cuda_device, shape):
+    """The fused kernel, the per-level yardstick and the plain version: the two
+    kernels bit for bit (same arithmetic, same contraction), both within the
+    tolerances of the plain version."""
+    img = torch.from_numpy(np.round(_img(*shape, seed=5)).astype(np.uint8)).to(cuda_device)
+    gw = torch.linspace(0.5, 1.5, 256, device=cuda_device)
+    n = min(6, _depth(*shape))
+    launches, per_level = P.kernel_launches, P.per_level_launches
+    lv, gr = P.build_direct_pyramid(img, n, gw)
+    lo, go = P.build_direct_pyramid_cuda_per_level(img, n, gw)
+    torch.cuda.synchronize()
+    assert P.kernel_launches == launches + 1 and P.per_level_launches == per_level + n
+    lp, gp = P.build_direct_pyramid_plain(img.float(), n, gw)
+    for a, b, c in zip(lv + gr, lo + go, lp + gp):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, c, rtol=G2_RTOL, atol=G2_ATOL)
+
+
+@pytest.mark.gpu
+def test_repeated_and_two_thread_calls_give_identical_bits(cuda_device):
+    """100 calls in a row on one stream, then two Python threads at once: the
+    kernel's block counter is back at 0 after every launch, so every call
+    gives the first call's bits."""
+    import threading
+    img = torch.from_numpy(np.round(_img(480, 640, 9)).astype(np.uint8)).to(cuda_device)
+    gw = torch.linspace(0.5, 1.5, 256, device=cuda_device)
+    ref = torch.cat([x.reshape(-1) for x in sum(P.build_direct_pyramid(img, 6, gw), [])])
+    launches = P.kernel_launches
+
+    def run(n, out):
+        for _ in range(n):
+            lv, gr = P.build_direct_pyramid(img, 6, gw)
+            out.append(torch.cat([x.reshape(-1) for x in lv + gr]))
+
+    outs = []
+    run(100, outs)
+    a, b = [], []
+    threads = [threading.Thread(target=run, args=(50, o)) for o in (a, b)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert P.kernel_launches == launches + 200
+    assert all(torch.equal(o, ref) for o in outs + a + b)
+
+
+@pytest.mark.gpu
+def test_launch_into_a_kept_buffer(cuda_device):
+    """launch_pyramid writes the levels where pyramid_views finds them and
+    nothing else: the padding between the sub-buffers keeps its bits."""
+    img = torch.from_numpy(_img(65, 67, 4)).to(cuda_device)
+    lay = P.pyramid_layout(65, 67, 6)
+    buf = torch.full((lay.total + 8,), float("nan"), device=cuda_device)
+    assert P.launch_pyramid(img, buf, 6) == lay
+    torch.cuda.synchronize()
+    lv, gr = P.pyramid_views(buf, lay)
+    lp, gp = P.build_direct_pyramid_plain(img, 6)
+    assert all(torch.equal(a, b) for a, b in zip(lv, lp))
+    written = sum(x.numel() for x in lv + gr)
+    assert int(torch.isnan(buf).sum()) == buf.numel() - written
 
 
 @pytest.mark.gpu
@@ -72,6 +155,13 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
         P.build_direct_pyramid(img, 2, torch.ones(255, device=cuda_device))
     with pytest.raises(ValueError):            # more levels than the image has
         P.build_direct_pyramid(img[:4, :4].contiguous(), 4)
+    with pytest.raises(ValueError):            # more levels than the kernel takes
+        P.build_direct_pyramid(torch.zeros(1024, 1024, device=cuda_device), 9)
+    with pytest.raises(ValueError):            # a buffer that is too small
+        P.launch_pyramid(img, torch.empty(16, device=cuda_device), 2)
+    launches = P.kernel_launches               # float64 is cast, then launched once
+    lv, _ = P.build_direct_pyramid(img.double(), 2)
+    assert P.kernel_launches == launches + 1 and lv[0].dtype == torch.float32
 
 
 # ------------------------------------------------- hybrid modules, CUDA vs CPU
@@ -152,7 +242,7 @@ def test_pnp_and_init_refine_cuda_vs_cpu(cuda_device):
 @pytest.mark.gpu
 def test_track_step_launches_the_kernel(cuda_device):
     """track_step on a uint8 CUDA frame builds its pyramid with the kernel
-    (one launch per level) and agrees with the CPU run."""
+    (one launch for all levels) and agrees with the CPU run."""
     from hslam_tpu_torch.config import Config
     from hslam_tpu_torch.ops import tracker as T
     a, b, R, t = _scene_pair()
@@ -179,10 +269,20 @@ def test_track_step_launches_the_kernel(cuda_device):
                          torch.zeros(2, device=dev), cfg, 3)
         if dev.type == "cuda":
             torch.cuda.synchronize()
-            assert P.kernel_launches == launches + 3
+            assert P.kernel_launches == launches + 1
         out[dev.type] = [x.cpu() for x in (o.R, o.t, o.ok)]
     assert bool(out["cpu"][2]) and bool(out["cuda"][2])
     # f32 reductions in another order on the card (chip_smoke.py phase 4)
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=0, atol=1e-4)
     torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=0, atol=1e-4)
     np.testing.assert_allclose(out["cuda"][1].numpy(), t, atol=3e-3)
+
+
+@pytest.mark.gpu
+def test_system_runs_on_the_card_by_default(cuda_device):
+    from hslam_tpu_torch.config import Config
+    from hslam_tpu_torch.models.system import SLAMSystem
+    slam = SLAMSystem(80.0, 80.0, 63.5, 47.5, 128, 96, Config(pyr_levels=3),
+                      enable_loop_closure=False)
+    assert slam.device.type == "cuda" and slam.window.frames.images.device.type == "cuda"
+    slam.close()

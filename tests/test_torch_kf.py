@@ -214,7 +214,8 @@ def kf_state():
     """A port-made state one frame before a keyframe step (frame 9 of the
     sweep), plus the step's inputs."""
     frames, _ = make_sequence(Scene(H, W, FX, n_blobs=16), 10, lambda i: sweep_xi(i / 10.0))
-    slam = SLAMSystem(FX, FX, W / 2 - 0.5, H / 2 - 0.5, W, H, CFG, enable_loop_closure=False)
+    slam = SLAMSystem(FX, FX, W / 2 - 0.5, H / 2 - 0.5, W, H, CFG, enable_loop_closure=False,
+                      device="cpu")
     for i, f in enumerate(frames[:9]):
         slam.process_frame(f, 0.1 * i)
     assert slam.initialized and slam.next_kf_id >= 3
@@ -300,7 +301,8 @@ def hybrid_state():
     """A port-made hybrid state (the default indirect layer and init
     refinement) one frame before a keyframe step, plus the step's inputs."""
     frames, _ = make_sequence(Scene(H, W, FX, n_blobs=16), 10, lambda i: sweep_xi(i / 10.0))
-    slam = SLAMSystem(FX, FX, W / 2 - 0.5, H / 2 - 0.5, W, H, CFG_H, enable_loop_closure=False)
+    slam = SLAMSystem(FX, FX, W / 2 - 0.5, H / 2 - 0.5, W, H, CFG_H, enable_loop_closure=False,
+                      device="cpu")
     for i, f in enumerate(frames[:9]):
         slam.process_frame(f, 0.1 * i)
     assert slam.initialized and slam.next_kf_id >= 3

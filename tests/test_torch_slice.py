@@ -44,7 +44,7 @@ def test_slice_matches_jax_outcome(quantize):
     js = JSLAM(FX, FX, W / 2 - 0.5, H / 2 - 0.5, W, H, JConfig(**CFG_KW),
                enable_loop_closure=False)
     ts = TSLAM(FX, FX, W / 2 - 0.5, H / 2 - 0.5, W, H, Config(**CFG_KW),
-               enable_loop_closure=False)
+               enable_loop_closure=False, device="cpu")
     jv, jest = _run(js, frames)
     tv, test = _run(ts, frames)
     assert js.initialized and ts.initialized

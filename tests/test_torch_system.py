@@ -41,7 +41,7 @@ N_FRAMES = 20
 
 def _port(sequential=True):
     return SLAMSystem(FX, FX, CX, CY, W, H, Config(**CFG_KW), enable_loop_closure=False,
-                      sequential=sequential)
+                      sequential=sequential, device="cpu")
 
 
 def _centres(slam, ids):
@@ -169,7 +169,7 @@ def test_kidnap_triggers_relocalization(indirect):
     offset = tuple(np.asarray(x) for x in lie.se3_exp(
         jnp.array([0.5, 0.25, 0.0, 0.0, 0.15, 0.0])))
     slam = SLAMSystem(FX, FX, CX, CY, W, H, Config(**CFG_KW, enable_indirect=indirect),
-                      enable_loop_closure=False)
+                      enable_loop_closure=False, device="cpu")
     gt, est = [], []
     for i in range(26):
         t = i / 10.0
@@ -204,7 +204,7 @@ def test_hybrid_config_still_refuses(kwargs):
     kw = dict(enable_loop_closure=False, sequential=False)
     kw.update(kwargs)
     with pytest.raises(NotImplementedError):
-        SLAMSystem(FX, FX, CX, CY, W, H, Config(**CFG_KW), **kw)
+        SLAMSystem(FX, FX, CX, CY, W, H, Config(**CFG_KW), device="cpu", **kw)
 
 
 def test_mapping_thread_exception_reaches_caller(monkeypatch):
@@ -240,7 +240,8 @@ def test_fast_selector_matches_jax():
                   pyr_levels=3, use_fast=True)
     I0 = np.array(make_texture())
     js = JSLAM(FX, FX, CX, CY, W, H, JConfig(**cfg_kw), enable_loop_closure=False)
-    ts = SLAMSystem(FX, FX, CX, CY, W, H, Config(**cfg_kw), enable_loop_closure=False)
+    ts = SLAMSystem(FX, FX, CX, CY, W, H, Config(**cfg_kw), enable_loop_closure=False,
+                    device="cpu")
     jpyr, jgrads = js._prep(jnp.asarray(I0))
     ju, jv, jt, jval = (np.asarray(x) for x in js._select_px(5, jpyr[0], jgrads, 100, 0))
     from hslam_tpu_torch.ops.pyramid import build_direct_pyramid
@@ -350,3 +351,15 @@ def test_pipelined_retry_after_rejected_winner(monkeypatch):
     assert shell.pose_valid and not shell.relocalized
     err = np.linalg.norm(shell.cam_to_world[:3, 3] - slam.shells[shell.id - 1].cam_to_world[:3, 3])
     assert err < 0.05      # consecutive frames of the sweep are ~1-2 cm apart
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """Without `device` the system runs on the card: where there is none the
+    constructor raises and names the remedy; device="cpu" constructs."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match=r'device="cpu"'):
+        SLAMSystem(FX, FX, CX, CY, W, H, Config(**CFG_KW), enable_loop_closure=False)
+    slam = SLAMSystem(FX, FX, CX, CY, W, H, Config(**CFG_KW), enable_loop_closure=False,
+                      device="cpu")
+    assert slam.device.type == "cpu"
+    slam.close()
