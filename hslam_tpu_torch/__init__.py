@@ -6,13 +6,15 @@ field names and array layouts, so the parity tests compare like with like.
 This package imports torch and never jax (nor hslam_tpu, whose import pulls
 jax in).
 
-Covered: the default hybrid configuration of `models/system.py::SLAMSystem`
-without loop closure, through `process_frame` and the pipelined
-`process_frame_pipelined` with the mapping thread (bootstrap with direct
+Covered: `models/system.py::SLAMSystem` as its default constructor builds
+it (the hybrid configuration with loop closure on the shipped vocabulary),
+through `process_frame` and the pipelined `process_frame_pipelined` with
+the mapping thread and the loop-closure worker: bootstrap with direct
 refinement, tracking, ORB features and indirect association, the keyframe
-step, non-keyframe tracing, PnP relocalization). The per-level pyramid
-pass is a hand-written CUDA kernel (csrc/pyramid.cu); everything else is
-plain torch.
+step, non-keyframe tracing, PnP relocalization, BoW place recognition with
+PnP verification and the Sim3 pose graph (dense and matrix-free). The
+pyramid is a hand-written CUDA kernel (csrc/pyramid.cu); everything else
+is plain torch.
 """
 
 import torch as _torch

@@ -8,19 +8,30 @@ NamedTuples of numpy arrays. No jax import: the JAX side hands over numpy.
 
 Descriptors: the JAX package stores rBRIEF words as uint32, the port as
 int32 with the same bits (ops/orb.py). uint32 arrays therefore cross as a
-`.view(np.int32)`, and `to_numpy` gives Feats.desc back as uint32, so a
-round trip is bit-exact.
+`.view(np.int32)`, and `to_numpy` gives Feats.desc and Vocabulary.centroids
+back as uint32, so a round trip is bit-exact.
+
+Loop closure: a Vocabulary and a PoseGraph cross like any other structure
+(the vocabulary's k, levels and n_words are plain ints). The loop closer's
+database is a list of KeyframeEntry dataclasses of numpy arrays on both
+sides; `entries_from_numpy` and `entries_to_numpy` carry such a list
+across, so both packages can start a parity test from one database.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from .models import calib as _calib
 from .models import kf_step as _ks
+from .models import loop_closure as _lc
 from .models import optimizer as _opt
+from .models import pose_graph as _pg
 from .models import window as _w
 from .ops import ba as _ba
+from .ops import bow as _bow
 from .ops import epipolar as _epi
 from .ops import features as _ft
 from .ops import tracker as _trk
@@ -28,19 +39,23 @@ from .ops import tracker as _trk
 _PORT_TYPES = {cls.__name__: cls for cls in (
     _w.Window, _w.Frames, _w.Points, _ks.Imm, _ks.KFBundle, _epi.TraceState,
     _trk.Template, _trk.TrackResult, _calib.Calib, _ft.Feats,
-    _ba.Linearization, _ba.GNSystem, _ba.FrozenResiduals, _opt.BAResult)}
+    _ba.Linearization, _ba.GNSystem, _ba.FrozenResiduals, _opt.BAResult,
+    _bow.Vocabulary, _pg.PoseGraph)}
 
 
 def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def from_numpy(tree, device="cpu"):
+def from_numpy(tree, device="cuda"):
     if _is_namedtuple(tree):
         cls = _PORT_TYPES.get(type(tree).__name__)
         if cls is None:
             raise TypeError(f"no port structure named {type(tree).__name__}")
-        return cls(**{k: from_numpy(getattr(tree, k), device) for k in cls._fields})
+        out = cls(**{k: from_numpy(getattr(tree, k), device) for k in cls._fields})
+        if cls is _pg.PoseGraph:      # the port indexes with int64
+            out = out._replace(edge_i=out.edge_i.long(), edge_j=out.edge_j.long())
+        return out
     if isinstance(tree, (list, tuple)):
         return type(tree)(from_numpy(x, device) for x in tree)
     if isinstance(tree, (bool, int, float)) and not isinstance(tree, np.generic):
@@ -52,9 +67,14 @@ def from_numpy(tree, device="cpu"):
 
 
 def to_numpy(tree):
-    if isinstance(tree, _ft.Feats):
+    if isinstance(tree, (_ft.Feats, _bow.Vocabulary, _pg.PoseGraph)):
         out = type(tree)(**{k: to_numpy(getattr(tree, k)) for k in tree._fields})
-        return out._replace(desc=out.desc.view(np.uint32))
+        if isinstance(tree, _ft.Feats):
+            return out._replace(desc=out.desc.view(np.uint32))
+        if isinstance(tree, _bow.Vocabulary):
+            return out._replace(centroids=out.centroids.view(np.uint32))
+        return out._replace(edge_i=out.edge_i.astype(np.int32),
+                            edge_j=out.edge_j.astype(np.int32))
     if _is_namedtuple(tree):
         return type(tree)(**{k: to_numpy(getattr(tree, k)) for k in tree._fields})
     if isinstance(tree, (list, tuple)):
@@ -62,3 +82,31 @@ def to_numpy(tree):
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
     return tree
+
+
+def entries_from_numpy(entries) -> list:
+    """A loop-closure database (KeyframeEntry records of numpy arrays, of
+    either package) as the port's KeyframeEntry list: copies, descriptors
+    as int32 words."""
+    out = []
+    for e in entries:
+        kw = {f.name: getattr(e, f.name) for f in dataclasses.fields(_lc.KeyframeEntry)}
+        kw = {k: (np.array(v) if isinstance(v, np.ndarray) else v) for k, v in kw.items()}
+        if kw["desc"].dtype == np.uint32:
+            kw["desc"] = kw["desc"].view(np.int32)
+        out.append(_lc.KeyframeEntry(**kw))
+    return out
+
+
+def entries_to_numpy(entries) -> list:
+    """The port's KeyframeEntry list as dicts of the JAX package's
+    KeyframeEntry fields (descriptors as uint32), for `KeyframeEntry(**d)`
+    on that side."""
+    out = []
+    for e in entries:
+        d = {k: (np.array(v) if isinstance(v, np.ndarray) else v)
+             for k, v in dataclasses.asdict(e).items()}
+        if d["desc"].dtype == np.int32:
+            d["desc"] = d["desc"].view(np.uint32)
+        out.append(d)
+    return out

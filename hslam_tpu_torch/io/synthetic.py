@@ -7,6 +7,9 @@ np.random.default_rng instead of jax.random, so the frames are the same
 wherever they are rendered, and both packages can be fed identical input.
 Camera: `arc_xi` is bench.py's arc; poses are worldToCam (R, t) =
 se3_exp(xi), and the ground-truth camera centre is -R^T t.
+`make_loop_frames` continues a rendered arc into bench.py's loop sequence:
+the arc again under exposure flicker, a flight back to the start, and the
+first seconds re-traced.
 """
 from __future__ import annotations
 
@@ -22,6 +25,12 @@ def arc_xi(t: float) -> np.ndarray:
         0.10 * np.sin(0.17 * t),
         0.02 * np.sin(0.2 * t), 0.02 * (1 - np.cos(0.15 * t)), 0.01 * t,
     ], np.float64)
+
+
+# bench.py's loop sequence, in frames
+LOOP_REP = 120    # continuing the arc (drift accumulates)
+LOOP_RET = 36     # flying back to the start
+LOOP_REV = 110    # re-tracing the early trajectory
 
 
 def sweep_xi(t: float) -> np.ndarray:
@@ -120,3 +129,38 @@ def make_sequence(scene: Scene, n_frames: int,
         frames.append(img)
         centres.append(-R.T @ t)
     return frames, np.stack(centres)
+
+
+def make_loop_frames(scene: Scene, n_arc: int, n_rep: int = LOOP_REP,
+                     n_ret: int = LOOP_RET, n_rev: int = LOOP_REV):
+    """The loop sequence after `n_arc` frames of the arc (bench.py's
+    make_loop_frames): run the arc on for `n_rep` frames under exposure
+    flicker (drift accumulates: unmodeled gain stresses the affine-brightness
+    chain), fly smoothly back to the start over `n_ret` frames, then re-trace
+    its first `n_rev` frames, re-observing the early keyframes' views. The
+    flicker is a GLOBAL monotone gain, so rBRIEF tap comparisons keep their
+    signs. Returns (uint8 frames, camera centres, timestamps)."""
+    frames: List[np.ndarray] = []
+    centres, stamps = [], []
+    idx = n_arc
+
+    def emit(xi):
+        nonlocal idx
+        R, t = se3_exp_np(xi)
+        gain = 1.0 + 0.15 * np.sin(0.8 * idx)
+        frames.append(np.clip(np.round(scene.render(R, t) * gain), 0, 255).astype(np.uint8))
+        centres.append(-R.T @ t)
+        stamps.append(idx * 0.05)
+        idx += 1
+
+    t_end = (n_arc - 1) * 0.05
+    for k in range(n_rep):
+        emit(arc_xi(t_end + (k + 1) * 0.05))
+    xi_end = arc_xi(t_end + n_rep * 0.05)
+    # return flight: cosine blend from the far end to the arc's start
+    for k in range(n_ret):
+        a = 0.5 * (1 - np.cos(np.pi * (k + 1) / n_ret))
+        emit((1 - a) * xi_end + a * arc_xi(0.0))
+    for k in range(n_rev):
+        emit(arc_xi(k * 0.05))
+    return frames, np.stack(centres), stamps

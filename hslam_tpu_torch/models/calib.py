@@ -21,7 +21,7 @@ class Calib(NamedTuple):
         return self.value - self.value_zero
 
 
-def make_calib(fx, fy, cx, cy, width, height, device="cpu") -> Calib:
+def make_calib(fx, fy, cx, cy, width, height, device="cuda") -> Calib:
     v = torch.tensor([fx, fy, cx, cy], dtype=torch.float32, device=device)
     return Calib(value=v, value_zero=v.clone(), width=int(width),
                  height=int(height))

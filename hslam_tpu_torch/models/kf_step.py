@@ -52,7 +52,7 @@ class Imm(NamedTuple):
     trace: epi_ops.TraceState
 
 
-def empty_imm(cfg: Config, device="cpu") -> Imm:
+def empty_imm(cfg: Config, device="cuda") -> Imm:
     n = cfg.max_immature
     f32 = dict(dtype=torch.float32, device=device)
     return Imm(

@@ -17,22 +17,32 @@ The host keeps the small state machine (shells, window slot bookkeeping,
 policy mirrors refreshed from each keyframe's bundle), exactly as in the
 JAX package; numeric work is torch on `device`.
 
-Threads and the device: the tracking thread (the caller) and the mapping
-thread enqueue their work on the same CUDA stream (the default one), so
-every tensor one thread hands to the other was written by operations
-enqueued before it was handed over; no event or `record_stream` is needed. State
-shared between the threads is replaced, never mutated in place (the
-keypoint store, the window, the calibration), and a mapping-thread
-exception is raised on the tracking thread at its next call, by `finish`
-or by `close`.
+Loop closure (`enable_loop_closure`, on by default): every finalized
+keyframe becomes an entry of the `LoopCloser` (its stored features, or FAST +
+rBRIEF of its image without the indirect layer, with keypoint inverse
+depths), excluded from matching against the keyframes it shares residuals
+with (`connectivity`). Detection, verification and the pose-graph relaxation
+run inline (`sequential=True`) or on a loop-closure worker thread, which
+leaves its correction in `_pending_loop_corr` for the mapping thread to
+apply between keyframe steps: one gauge transform for the whole window.
 
-Refused with NotImplementedError, not silently skipped: loop closure,
-online photometric calibration, point-sharded BA (`dist_mesh`) and the
-metrics stream (`metrics_path`).
+Threads and the device: the tracking thread (the caller), the mapping thread
+and the loop-closure worker enqueue their work on the same CUDA stream (the
+default one), so every tensor one thread hands to another was written by
+operations enqueued before it was handed over; no event or `record_stream`
+is needed. State shared between the threads is replaced, never mutated in
+place (the keypoint store, the window, the calibration). A mapping-thread
+exception is raised on the tracking thread at its next call, by `finish`
+or by `close`; a worker exception by `finish` or `close`.
+
+Refused with NotImplementedError, not silently skipped: online photometric
+calibration, point-sharded BA (`dist_mesh`) and the metrics stream
+(`metrics_path`).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 import time as _time
 from collections import deque
@@ -45,6 +55,8 @@ from ..config import Config
 from ..models import kf_step as KS
 from ..models import window as W
 from ..models.calib import k_pyr_from_value, make_calib
+from ..models.loop_closure import LoopCloser
+from ..ops import bow as bow_ops
 from ..ops import features as FT
 from ..ops import init_refine as ir_ops
 from ..ops import klt as klt_ops
@@ -80,6 +92,16 @@ def _se3_np(R, t):
     T[:3, :3] = np.asarray(R)
     T[:3, 3] = np.asarray(t)
     return T
+
+
+def default_vocab_path() -> Optional[str]:
+    """The shipped 10^4-word BoW vocabulary: a data file of the JAX package
+    (hslam_tpu/assets/vocab_10k.npz, trained on diverse generated scenes),
+    read in place by path. None if the file is missing; callers then fall
+    back to online training."""
+    p = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "hslam_tpu", "assets", "vocab_10k.npz")
+    return p if os.path.exists(p) else None
 
 
 def _se3_log_np(T):
@@ -167,10 +189,14 @@ class SLAMSystem:
     def __init__(self, fx, fy, cx, cy, width, height, cfg: Config = Config(),
                  enable_loop_closure: bool = True, sequential: bool = True,
                  online_photo_calib: bool = False, dist_mesh=None,
+                 vocab_path: Optional[str] = None,
                  metrics_path: Optional[str] = None,
                  device: str | torch.device = "cuda"):
+        """`vocab_path`: the BoW vocabulary of loop closure (.npz of
+        ops.bow.save_vocabulary). The default (None) loads the shipped
+        10^4-word vocabulary; "online" trains a small one from the first 8
+        keyframes of the run instead; anything else is a path to your own."""
         unported = {
-            "enable_loop_closure=True": enable_loop_closure,
             "online_photo_calib=True": online_photo_calib,
             "dist_mesh": dist_mesh is not None,
             "metrics_path": metrics_path is not None,
@@ -187,6 +213,18 @@ class SLAMSystem:
                 "available; pass device=\"cpu\" to run on the CPU, as the tests do")
         self.calib = make_calib(fx, fy, cx, cy, width, height, device=self.device)
         self.width, self.height = width, height
+        self.enable_loop_closure = enable_loop_closure
+        self.loop_closer: Optional[LoopCloser] = None   # built once a vocabulary exists
+        self._vocab_descs: list = []      # descriptor pool for online training
+        self._pending_entries: list = []  # keyframe entries awaiting the vocabulary
+        if vocab_path is None:
+            vocab_path = default_vocab_path()
+        elif vocab_path == "online":
+            vocab_path = None
+        if enable_loop_closure and vocab_path is not None:
+            self.loop_closer = self._make_loop_closer(
+                bow_ops.load_vocabulary(vocab_path, device=self.device))
+        self.n_loops_closed = 0
         self.n_relocs = 0            # successful PnP relocalizations
         self.window = W.empty_window(cfg, height, width, device=self.device)
         self.imm = KS.empty_imm(cfg, device=self.device)
@@ -214,7 +252,11 @@ class SLAMSystem:
         self._m_nact_host = np.zeros(F, np.int64)
         self._m_nimm_host = np.zeros(F, np.int64)
         self._m_n_active = 0
+        # keyframe connectivity map:
+        # (host_kf_id, target_kf_id) -> [n_active_res, n_marginalized_res]
+        self.connectivity: dict = {}
         self.ind_obs_history: List[int] = []   # live indirect observations per KF
+        self._newest_template: Optional[trk_ops.Template] = None
         self.template: Optional[trk_ops.Template] = None
         self.ref_slot = -1
         self.ref_shell_id = -1
@@ -232,6 +274,9 @@ class SLAMSystem:
         self._ref_lock = threading.Lock()
         self._shell_lock = threading.Lock()
         self._map_exc: Optional[BaseException] = None
+        # the loop-closure worker's failures get a slot of their own: a
+        # concurrent mapping-thread exception must not overwrite one
+        self._lc_exc: Optional[BaseException] = None
         self.n_frames_skipped = 0         # non-KF frames dropped in catch-up
         self._need_kf_after = -1          # NeedNewKFAfter latch (shell id)
         self._catch_up = False
@@ -251,6 +296,13 @@ class SLAMSystem:
         # on); kf_full_latencies: dispatch to the finalized bundle
         self.kf_latencies: deque = deque(maxlen=200)
         self.kf_full_latencies: deque = deque(maxlen=200)
+        self.lc_detect_ms: deque = deque(maxlen=200)
+        # loop-closure worker (sequential=False): BoW, PnP and the pose graph
+        # run off the mapping thread; corrections come back through
+        # _pending_loop_corr and are applied between keyframe steps
+        self._lc_thread = None
+        self._pending_loop_corr = None
+        self._lc_corr_lock = threading.Lock()
         self._map_thread = None
         if not sequential:
             self._queue: deque = deque()
@@ -259,6 +311,13 @@ class SLAMSystem:
             self._map_busy = False
             self._map_thread = threading.Thread(target=self._mapping_loop, daemon=True)
             self._map_thread.start()
+            if enable_loop_closure:
+                self._lc_queue: deque = deque()
+                self._lc_cond = threading.Condition()
+                self._lc_stop = False
+                self._lc_busy = False
+                self._lc_thread = threading.Thread(target=self._lc_loop, daemon=True)
+                self._lc_thread.start()
 
     # ------------------------------------------------------------ helpers
     def _f32(self, x):
@@ -481,6 +540,15 @@ class SLAMSystem:
                 more = len(self._queue)
                 self._map_busy = True
             try:
+                # a worker-computed loop correction folds in only after a
+                # deferred keyframe finalization (the deferred bundle's poses
+                # predate the correction), and before the next keyframe or
+                # trace step touches the window
+                with self._lc_corr_lock:
+                    corr_waiting = self._pending_loop_corr is not None
+                if corr_waiting:
+                    self._finalize_pending_kf()
+                    self._apply_pending_loop_corr()
                 if more > self.CATCHUP_DRAIN:
                     # severe overload: keep only the freshest frame
                     dropped = [shell]
@@ -536,29 +604,64 @@ class SLAMSystem:
                 if sh.tracking_ref is not None:
                     sh.cam_to_world = self.shells[sh.tracking_ref].cam_to_world @ sh.cam_to_ref
 
-    def finish(self):
+    def finish(self, wait_lc: bool = True):
         """BlockUntilMappingIsFinished: drain the mapping queue and fold in a
-        deferred keyframe finalization. No-op in sequential mode."""
+        deferred keyframe finalization; with `wait_lc` also drain the
+        loop-closure worker and apply a correction it left (the mapping
+        thread is idle at this barrier, so applying here cannot race a
+        keyframe step). `wait_lc=False` leaves the worker running: loop
+        closure is a background service, and a throughput measurement need
+        not block on it. No-op in sequential mode."""
         if self.sequential:
             return
         with self._qcond:
             while self._queue or self._map_busy:
                 self._qcond.wait()
-        self._raise_map_exc()
-        self._finalize_pending_kf()
+        if self._map_exc is None:
+            self._finalize_pending_kf()
+        if wait_lc and self._lc_thread is not None:
+            with self._lc_cond:
+                while self._lc_queue or self._lc_busy:
+                    self._lc_cond.wait()
+            if self._map_exc is None:
+                self._apply_pending_loop_corr()
+        self._raise_thread_excs()
+
+    def _raise_thread_excs(self):
+        """Raise what the mapping thread or the loop-closure worker left;
+        if both failed, the worker's exception is chained as the context."""
+        if self._map_exc is not None:
+            exc, self._map_exc = self._map_exc, None
+            if self._lc_exc is not None:
+                exc.__context__, self._lc_exc = self._lc_exc, None
+            raise exc
+        if self._lc_exc is not None:
+            exc, self._lc_exc = self._lc_exc, None
+            raise exc
 
     def close(self):
-        """Stop and join the mapping thread (after finish()). Raises a
-        mapping-thread exception that was not raised yet."""
+        """Stop and join the mapping thread and the loop-closure worker
+        (after finish()). Raises an exception of either that was not raised
+        yet."""
         if self._map_thread is not None:
             with self._qcond:
                 self._map_stop = True
                 self._qcond.notify_all()
-            self._map_thread.join(timeout=60.0)
-            if self._map_thread.is_alive():
-                raise RuntimeError("mapping thread did not stop within 60 s")
+            self._join(self._map_thread, "mapping thread")
             self._map_thread = None
-        self._raise_map_exc()
+        if self._lc_thread is not None:
+            with self._lc_cond:
+                self._lc_stop = True
+                self._lc_cond.notify_all()
+            self._join(self._lc_thread, "loop-closure worker")
+            self._lc_thread = None
+        self._raise_thread_excs()
+
+    @staticmethod
+    def _join(thread, what):
+        thread.join(timeout=60.0)
+        if thread.is_alive():
+            raise RuntimeError(f"{what} did not stop within 60 s")
 
     # ------------------------------------------------------------ bootstrap
     def _try_initialize(self, shell: Shell, pyr, grads):
@@ -908,6 +1011,7 @@ class SLAMSystem:
         self.kf_shell_ids.append(shell.id)
         # publish the tracker reference now (the coarseTracker_forNewKF
         # double buffer); the BA-refined affine follows in _finalize_kf
+        self._newest_template = template
         ref = (template, slot, shell.id, np.asarray(shell.aff, np.float64).copy(),
                shell.exposure or 1.0)
         if self.sequential:
@@ -917,7 +1021,7 @@ class SLAMSystem:
         else:
             with self._ref_lock:
                 self._pending_ref = ref
-        pending = (shell, slot, flag_mask, bundle, t0)
+        pending = (shell, slot, flag_mask, bundle, pyr, t0)
         if defer and self.next_kf_id > 4:
             self._pending_kf_final = pending     # init gates closed
         else:
@@ -930,10 +1034,11 @@ class SLAMSystem:
 
     def _finalize_kf(self, pending):
         """The policy pull: init/lost gates, shell poses, policy mirrors,
-        selector density adaptation, the reference's BA-refined affine."""
+        connectivity, selector density adaptation, the reference's
+        BA-refined affine, the loop-closure hand-off."""
         cfg = self.cfg
         F = cfg.max_frames
-        shell, slot, flag_mask, bundle, t0 = pending
+        shell, slot, flag_mask, bundle, pyr, t0 = pending
         b = KS.KFBundle(*[x.cpu().numpy() for x in bundle])         # host sync
         rmse = float(b.rmse)
         nkf = self.next_kf_id
@@ -970,6 +1075,14 @@ class SLAMSystem:
                 self._marg_counts[s] = 0
             elif int(b.removed_host[s]):
                 self._marg_counts[s] = self._marg_counts.get(s, 0) + int(b.removed_host[s])
+        # connectivity map from the device tallies of this keyframe step
+        for h_, t_ in zip(*np.nonzero((b.conn_active > 0) | (b.conn_marg > 0))):
+            if h_ == t_:
+                continue
+            link = self.connectivity.setdefault((int(b.kf_id[h_]), int(b.kf_id[t_])), [0, 0])
+            if b.conn_active[h_, t_] > 0:
+                link[0] = int(b.conn_active[h_, t_])
+            link[1] += int(b.conn_marg[h_, t_])
         if not cfg.use_fast:
             have = max(int(b.sel_count), 1)
             ideal = self.selector_pot * np.sqrt(have / cfg.desired_immature_density)
@@ -981,6 +1094,8 @@ class SLAMSystem:
                 self._pending_ref = (pr[0], pr[1], pr[2], aff_ba, pr[4])
             elif self.ref_shell_id == shell.id:
                 self.ref_aff = aff_ba
+        if self.enable_loop_closure:
+            self._loop_closure_step(slot, shell, pyr, b)
 
     def _adapt_act_dist(self):
         """Density feedback on currentMinActDist (Mapping.cpp:332-351)."""
@@ -1004,6 +1119,184 @@ class SLAMSystem:
         elif n_active > target:
             d += 0.1
         self.current_min_act_dist = float(np.clip(d, 0.0, 4.0))
+
+    # -------------------------------------------------------- loop closure
+    def _make_loop_closer(self, vocab: bow_ops.Vocabulary) -> LoopCloser:
+        return LoopCloser(vocab, min_gap=10, min_loop_error_rel=1.0, consistency_th=2)
+
+    def _lift_keypoint_depths(self, u, v, radius_px: float = 3.0):
+        """Nearest-template-point inverse depth of keypoints, from the newest
+        template (the one just built for the current keyframe), else the
+        tracking reference's. Returns (idepth (N,), depth_ok (N,))."""
+        tpl = self._newest_template or self.template
+        if tpl is None:
+            return torch.zeros_like(u), torch.zeros_like(u, dtype=torch.bool)
+        tid, dmin = trk_ops.nearest_template_depth(u, v, tpl.u[0], tpl.v[0],
+                                                   tpl.idepth[0], tpl.valid[0])
+        return tid, dmin <= radius_px * radius_px
+
+    def _loop_closure_step(self, slot: int, shell: Shell, pyr, bundle):
+        """Per-keyframe loop-closure hook: gather descriptors and keypoint
+        depths, then run BoW, PnP and the pose graph inline (sequential) or
+        hand them to the loop-closure worker, off the mapping thread's
+        per-keyframe latency."""
+        if self.cfg.enable_indirect:
+            # the keyframe's stored multi-scale features (extracted once in
+            # kf_step), with the inverse depths lifted inside that step and
+            # pulled with the policy bundle
+            feats = self.feats
+            u, v = feats.u[slot], feats.v[slot]
+            valid, desc = feats.valid[slot], feats.desc[slot]
+            kp_idepth, kp_depth_ok = bundle.kp_idepth, bundle.kp_depth_ok
+        else:
+            u, v, valid, desc = self._orb_features(pyr[0][..., 0])
+            kp_idepth, kp_depth_ok = self._lift_keypoint_depths(u, v)
+        entry = (shell.kf_id, shell.id, desc, u, v, valid, shell.cam_to_world.copy(),
+                 kp_idepth, kp_depth_ok)
+        exclude = self._connected_kf_ids(shell.kf_id)
+        if self._lc_thread is None:
+            corr = self._lc_process(entry, exclude)
+            if corr is not None:
+                self._apply_loop_correction(corr)
+        else:
+            with self._lc_cond:
+                self._lc_queue.append((entry, exclude))
+                self._lc_cond.notify_all()
+
+    def _lc_process(self, entry, exclude_kfs):
+        """Vocabulary bootstrap, BoW detection and pose-graph correction for
+        one keyframe entry. Returns the correction {shell_id: cam_to_world}
+        or None. Runs on the caller's or the mapping thread (sequential) or
+        on the loop-closure worker."""
+        if self.loop_closer is None:
+            desc, valid = (x.cpu().numpy() for x in (entry[2], entry[5]))
+            self._vocab_descs.append(desc[valid])
+            self._pending_entries.append(entry)
+            if len(self._vocab_descs) >= 8:
+                doc_ids = np.concatenate([np.full(len(d), i, np.int32)
+                                          for i, d in enumerate(self._vocab_descs)])
+                voc = bow_ops.train_vocabulary(
+                    np.concatenate(self._vocab_descs), k=8, levels=3, iters=4,
+                    doc_ids=doc_ids, device=self.device)
+                closer = self._make_loop_closer(voc)
+                # backfill the keyframes that fed the vocabulary: without
+                # them the revisit has nothing to match against
+                for e in self._pending_entries:
+                    closer.add_keyframe(*e[:7], kp_idepth=e[7], kp_depth_ok=e[8])
+                self.loop_closer = closer
+                self._vocab_descs, self._pending_entries = [], []
+            return None
+
+        closer = self.loop_closer
+        closer.add_keyframe(*entry[:7], kp_idepth=entry[7], kp_depth_ok=entry[8])
+        fx, fy, cx, cy = self.calib.value.cpu().numpy().astype(np.float64)
+        K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
+        t_lc = _time.perf_counter()
+        loop = closer.detect(len(closer.entries) - 1, K, exclude_kfs=exclude_kfs)
+        self.lc_detect_ms.append(1e3 * (_time.perf_counter() - t_lc))
+        if loop is None:
+            return None
+        corrections = closer.correct(loop, fix_scale=False)
+        if not corrections:
+            return None    # relaxation rejected (divergence gate)
+        self.n_loops_closed += 1
+        return dict(corrections)
+
+    def _lc_loop(self):
+        """Loop-closure worker: consumes keyframe entries, computes
+        corrections and leaves them in _pending_loop_corr for the mapping
+        thread to apply between keyframe steps; replacing the window must
+        never race a kf_step."""
+        while True:
+            with self._lc_cond:
+                while not self._lc_queue and not self._lc_stop:
+                    self._lc_cond.wait()
+                if self._lc_stop and not self._lc_queue:
+                    return
+                entry, exclude = self._lc_queue.popleft()
+                self._lc_busy = True
+            try:
+                corr = self._lc_process(entry, exclude)
+                if corr is not None:
+                    with self._lc_corr_lock:
+                        # over an unapplied older correction: the new
+                        # relaxation already includes its effect (correct()
+                        # updated the entry poses)
+                        self._pending_loop_corr = corr
+            except Exception as e:        # raised by finish or close
+                self._lc_exc = e
+            finally:
+                with self._lc_cond:
+                    self._lc_busy = False
+                    self._lc_cond.notify_all()
+
+    def _apply_pending_loop_corr(self):
+        """On the mapping thread (or at the finish barrier): fold in a
+        correction the worker computed."""
+        with self._lc_corr_lock:
+            corr, self._pending_loop_corr = self._pending_loop_corr, None
+        if corr is not None:
+            self._apply_loop_correction(corr)
+
+    def _apply_loop_correction(self, by_shell: dict):
+        """Re-anchor trajectory and window after a pose-graph correction.
+
+        The active window gets ONE common gauge transform G, the newest
+        window keyframe's correction, applied to every window frame:
+        c2w' = G @ c2w, i.e. worldToCam' = worldToCam @ G^-1. A common
+        right-composition leaves every relative pose (and the idepths)
+        untouched, so the photometric residuals and the marginalization
+        prior HM/bM stay exactly consistent; the absolute shift lives in
+        the gauge nullspace the solver orthogonalizes anyway. (Per-keyframe
+        corrections inside the window would move the evalPTs relative to
+        each other and silently invalidate HM/bM.)"""
+        frames = self.window.frames
+        valid_np = frames.valid.cpu().numpy()                    # host sync
+        win_sids = {self.slot_shell[s] for s in range(self.cfg.max_frames)
+                    if valid_np[s] and self.slot_shell[s] is not None}
+        anchor_sid = next((sid for sid in sorted(win_sids, reverse=True)
+                           if sid in by_shell), None)
+        with self._shell_lock:
+            if anchor_sid is not None:
+                G = by_shell[anchor_sid] @ np.linalg.inv(self.shells[anchor_sid].cam_to_world)
+            else:
+                G = np.eye(4)
+            corrected = set()
+            for sh in self.shells:
+                if sh.id in win_sids:
+                    sh.cam_to_world = G @ sh.cam_to_world
+                    corrected.add(sh.id)
+                elif sh.id in by_shell:
+                    sh.cam_to_world = by_shell[sh.id]
+                    corrected.add(sh.id)
+            # non-keyframe shells ride their tracking reference through the
+            # correction (cam_to_world = ref_c2w @ cam_to_ref)
+            for sh in self.shells:
+                if sh.id not in corrected and sh.tracking_ref in corrected:
+                    sh.cam_to_world = self.shells[sh.tracking_ref].cam_to_world @ sh.cam_to_ref
+        # evalPT' = evalPT @ G^-1 over the valid slots; the per-frame state
+        # deltas are relative to evalPT and stay valid. A new Frames is
+        # built and the window swapped: nothing is written in place.
+        G_inv = np.linalg.inv(G)
+        Rg, tg = self._f32(G_inv[:3, :3]), self._f32(G_inv[:3, 3])
+        m = frames.valid[:, None, None]
+        frames = frames._replace(
+            evalpt_R=torch.where(m, frames.evalpt_R @ Rg, frames.evalpt_R),
+            evalpt_t=torch.where(m[:, :, 0], frames.evalpt_R @ tg + frames.evalpt_t,
+                                 frames.evalpt_t))
+        self.window = self.window._replace(frames=frames)
+
+    def _connected_kf_ids(self, kf_id: int) -> set:
+        """Keyframes sharing residuals (active or marginalized) with kf_id."""
+        out = set()
+        for (h, t), (na, nm) in self.connectivity.items():
+            if na + nm <= 0:
+                continue
+            if h == kf_id:
+                out.add(t)
+            elif t == kf_id:
+                out.add(h)
+        return out
 
     def _flag_frames_for_marg(self, new_shell: Shell) -> List[int]:
         """flagFramesForMarginalization on the host mirrors."""
@@ -1059,12 +1352,14 @@ class SLAMSystem:
         self._m_nimm_host[:] = 0
         self._m_n_active = 0
         self._marg_counts = {}
+        self.connectivity = {}
         self.initialized = False
         self.init_failed = False
         self._init_first = None
         self.slot_shell = [None] * cfg.max_frames
         self.next_kf_id = 0
         self.template = None
+        self._newest_template = None
         with self._ref_lock:
             self._pending_ref = None
         self.ref_slot = -1

@@ -71,7 +71,7 @@ def state_dim(cfg: Config) -> int:
     return CPARS + 8 * cfg.max_frames
 
 
-def empty_window(cfg: Config, height: int, width: int, device="cpu") -> Window:
+def empty_window(cfg: Config, height: int, width: int, device="cuda") -> Window:
     F, P = cfg.max_frames, cfg.max_points
     D = state_dim(cfg)
     f32 = dict(dtype=torch.float32, device=device)

@@ -35,7 +35,7 @@ class TraceState(NamedTuple):
     last_interval: torch.Tensor
 
 
-def init_trace_state(n: int, device="cpu") -> TraceState:
+def init_trace_state(n: int, device="cuda") -> TraceState:
     f32 = dict(dtype=torch.float32, device=device)
     return TraceState(
         idepth_min=torch.zeros(n, **f32),

@@ -45,7 +45,7 @@ class Feats(NamedTuple):
     valid: torch.Tensor    # (F, NF) bool
 
 
-def empty_feats(n_slots: int, capacity: int, device="cpu") -> Feats:
+def empty_feats(n_slots: int, capacity: int, device="cuda") -> Feats:
     f32 = dict(dtype=torch.float32, device=device)
     return Feats(
         u=torch.zeros((n_slots, capacity), **f32),

@@ -5,7 +5,16 @@ Minimal 6-point DLT samples are solved as one batch (batched SVD), scored
 by reprojection inliers together with an optional prior pose, and the best
 hypothesis is refined by two rounds of robust SE3 GN. The DLT pose is
 invariant to the sign of the singular vectors, so the two libraries' SVD
-conventions do not matter.
+conventions do not matter where the sample determines a pose.
+
+Where it does not (coplanar points, a point drawn twice), the 12x12 system
+has a null space of more than one dimension and the "smallest" singular
+vector is whatever the SVD routine returns: XLA's gives the same benign
+pose for every sample, LAPACK's and cuSOLVER's an arbitrary one per sample,
+and a few accidental inliers then beat a prior that drift has left with
+none. So that the outcome does not hang on that, a prior pose that lost the
+scoring is refined as well, and the refinement that ends with more inliers
+is the result (the scoring's winner on a tie, as in the JAX package).
 
 RANSAC samples (C3): the JAX package draws them with jax.random.choice
 (pnp.py:85); `samples` lets a test pass those in, otherwise they come from
@@ -120,9 +129,20 @@ def solve_pnp(X, x_px, valid, K, seed: int = 0, n_iters: int = 64,
         ts = torch.cat([ts, init_t[None]], 0)
     errs = _reproj_err(Rs, ts, X, x_px, K)
     inl = (errs < inlier_px) & valid[None, :]
+
+    def refine(R, t):
+        """A wide IRLS basin first, so that an approximate hypothesis pulls
+        in, then the hard inliers."""
+        R, t = _gn_round(R, t, X, x_px, valid, K, 3.0 * inlier_px, 6)
+        hard = ((_reproj_err(R, t, X, x_px, K) < inlier_px) & valid).float()
+        R, t = _gn_round(R, t, X, x_px, valid, K, inlier_px, 5, hard)
+        return R, t, (_reproj_err(R, t, X, x_px, K) < inlier_px) & valid
+
     best = inl.sum(-1).argmax()
-    R, t = _gn_round(Rs[best], ts[best], X, x_px, valid, K, 3.0 * inlier_px, 6)
-    hard = ((_reproj_err(R, t, X, x_px, K) < inlier_px) & valid).float()
-    R, t = _gn_round(R, t, X, x_px, valid, K, inlier_px, 5, hard)
-    inliers = (_reproj_err(R, t, X, x_px, K) < inlier_px) & valid
+    R, t, inliers = refine(Rs[best], ts[best])
+    if init_R is not None:
+        Rp, tp, inl_p = refine(init_R, init_t)
+        prior_wins = inl_p.sum() > inliers.sum()
+        R, t = torch.where(prior_wins, Rp, R), torch.where(prior_wins, tp, t)
+        inliers = torch.where(prior_wins, inl_p, inliers)
     return PnPResult(ok=inliers.sum() >= min_inliers, R=R, t=t, inliers=inliers)

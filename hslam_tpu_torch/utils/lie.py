@@ -1,10 +1,16 @@
-"""Batched SO(3) / SE(3) operations on torch tensors (port of
-hslam_tpu/utils/lie.py, the parts the direct-only slice uses).
+"""Batched SO(3) / SE(3) / Sim(3) operations on torch tensors (port of
+hslam_tpu/utils/lie.py).
 
 Conventions as in the JAX package: SE3 elements are (R (..., 3, 3),
 t (..., 3)); se3 tangents are [translation(3), rotation(3)]; exp is the left
-matrix exponential. Small-angle branches use torch.where with the same
-Taylor fallbacks, so there is no data-dependent control flow.
+matrix exponential. Sim3 elements are (s (...,), R, t) acting as
+x -> s R x + t, with tangents [v(3), w(3), sigma] and s = exp(sigma).
+Small-angle and small-sigma branches use torch.where over both arms with the
+same Taylor fallbacks, so there is no data-dependent control flow, no
+`.item()` and no in-place write: every function runs under torch.func's
+forward-mode jvp, which the pose graph differentiates through at exactly
+zero (forward mode takes the tangent of the selected arm only, so the dead
+arm's division by zero never reaches the result).
 """
 from __future__ import annotations
 
@@ -169,3 +175,64 @@ def rot_to_quat(R):
     q = torch.gather(cases, -2, idx)[..., 0, :]
     q = q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True), min=_EPS)
     return q * torch.where(q[..., 3:4] < 0, -1.0, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# Sim(3), for the scale-drift-aware pose graph
+# ---------------------------------------------------------------------------
+
+
+def _sim3_V(w, sigma):
+    """The matrix V of the sim3 exponential (closed form, Strasdat's
+    thesis): t = V v."""
+    s = torch.exp(sigma)
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(torch.clamp(theta2, min=0.0))
+    W = hat(w)
+    W2 = W @ W
+    eps = 1e-6
+    sig_small = sigma.abs() < eps
+    th_small = theta < eps
+    sig_safe = torch.where(sig_small, torch.ones_like(sigma), sigma)
+    th_safe = torch.where(th_small, torch.ones_like(theta), theta)
+    A_ss = torch.where(sig_small, 1.0 + sigma / 2.0, (s - 1.0) / sig_safe)
+    # exact closed forms (valid at sigma == 0 as they stand):
+    #   A = [s (sigma sin t - t cos t) + t] / (t (sigma^2 + t^2))
+    #   B = [A_ss - (s (sigma cos t + t sin t) - sigma) / (sigma^2 + t^2)] / t^2
+    a = sigma * sigma + th_safe * th_safe
+    ct, st = torch.cos(th_safe), torch.sin(th_safe)
+    A_gen = (s * (sigma * st - th_safe * ct) + th_safe) / (a * th_safe)
+    B_gen = (A_ss - (s * (sigma * ct + th_safe * st) - sigma) / a) / (th_safe * th_safe)
+    A_thsmall = torch.where(sig_small, 0.5 + sigma / 3.0,
+                            ((sig_safe - 1.0) * s + 1.0) / (sig_safe * sig_safe))
+    B_thsmall = torch.where(
+        sig_small, 1.0 / 6.0 + sigma / 8.0,
+        (s * (0.5 * sig_safe * sig_safe - sig_safe + 1.0) - 1.0) / (sig_safe ** 3))
+    A = torch.where(th_small, A_thsmall, A_gen)
+    B = torch.where(th_small, B_thsmall, B_gen)
+    return (A_ss[..., None, None] * _eye_like(W) + A[..., None, None] * W
+            + B[..., None, None] * W2)
+
+
+def sim3_exp(xi):
+    """(..., 7) -> (s (...,), R (..., 3, 3), t (..., 3))."""
+    v, w, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    return torch.exp(sigma), so3_exp(w), _mv(_sim3_V(w, sigma), v)
+
+
+def sim3_log(s, R, t):
+    """Inverse of sim3_exp: solves V v = t with the same V."""
+    w = so3_log(R)
+    sigma = torch.log(s)
+    v = torch.linalg.solve(_sim3_V(w, sigma), t[..., None])[..., 0]
+    return torch.cat([v, w, sigma[..., None]], dim=-1)
+
+
+def sim3_inverse(s, R, t):
+    si = 1.0 / s
+    Rt = R.transpose(-1, -2)
+    return si, Rt, -si[..., None] * _mv(Rt, t)
+
+
+def sim3_mul(sa, Ra, ta, sb, Rb, tb):
+    return sa * sb, Ra @ Rb, sa[..., None] * _mv(Ra, tb) + ta

@@ -21,7 +21,7 @@ torch.set_num_threads(1)
 
 
 def port(tree):
-    return from_numpy(jax.device_get(tree))
+    return from_numpy(jax.device_get(tree), "cpu")
 
 
 def close(a, b, rel, name=""):

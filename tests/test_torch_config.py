@@ -1,6 +1,8 @@
 """hslam_tpu_torch: Config and constants equal the JAX package's; the port
 imports no jax; unported options are refused, not silently skipped."""
 import dataclasses
+import pathlib
+import re
 import subprocess
 import sys
 
@@ -51,15 +53,26 @@ def test_port_imports_no_jax():
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
 
+def test_port_sources_name_no_jax_import():
+    """No source of the port, and not the chip smoke script, has an import
+    statement for jax or for the JAX package (its data file is read by
+    path)."""
+    root = pathlib.Path(__file__).resolve().parent.parent
+    files = sorted((root / "hslam_tpu_torch").rglob("*.py")) + [root / "chip_smoke.py"]
+    assert len(files) > 25
+    pat = re.compile(r"^\s*(import|from)\s+(jax|hslam_tpu)(\.|\s|$)", re.M)
+    bad = [str(f.relative_to(root)) for f in files if pat.search(f.read_text())]
+    assert not bad, bad
+
+
 SLICE = dict(enable_indirect=False, init_direct_refine=False)
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(cfg=SLICE, enable_loop_closure=True),
     dict(cfg=SLICE, online_photo_calib=True),
     dict(cfg=SLICE, dist_mesh=object()),
     dict(cfg=SLICE, metrics_path="metrics.jsonl"),
-], ids=["loop_closure", "photo_calib", "dist_mesh", "metrics_stream"])
+], ids=["photo_calib", "dist_mesh", "metrics_stream"])
 def test_system_refuses_unported_options(kwargs):
     from hslam_tpu_torch.models.system import SLAMSystem
     kw = dict(enable_loop_closure=False)
@@ -74,7 +87,11 @@ def test_system_refuses_unported_options(kwargs):
     dict(cfg=dict(enable_indirect=False, init_direct_refine=True)),
     dict(cfg=dict(SLICE, use_fast=True)),
     dict(cfg=SLICE, sequential=False),
-], ids=["indirect", "init_refine", "use_fast", "pipelined"])
+    dict(cfg=SLICE, enable_loop_closure=True),
+    dict(cfg={}, enable_loop_closure=True, sequential=False),
+    dict(cfg={}, enable_loop_closure=True, vocab_path="online"),
+], ids=["indirect", "init_refine", "use_fast", "pipelined", "loop_closure",
+        "loop_closure_pipelined", "loop_closure_online_vocabulary"])
 def test_system_accepts_ported_options(kwargs):
     """The ported options construct a system, which closes cleanly."""
     from hslam_tpu_torch.models.system import SLAMSystem
@@ -82,4 +99,28 @@ def test_system_accepts_ported_options(kwargs):
     kw.update(kwargs)
     cfg = tcfg.Config(**kw.pop("cfg"))
     slam = SLAMSystem(80.0, 80.0, 63.5, 47.5, 128, 96, cfg, device="cpu", **kw)
+    if kw["enable_loop_closure"]:
+        # the shipped vocabulary unless the caller asks for online training
+        online = kw.get("vocab_path") == "online"
+        assert (slam.loop_closer is None) == online
+        assert online or slam.loop_closer.vocab.n_words == 10_000
+        assert (slam._lc_thread is not None) == (not kw.get("sequential", True))
+    else:
+        assert slam.loop_closer is None and slam._lc_thread is None
+    slam.close()
+    assert slam._map_thread is None and slam._lc_thread is None
+
+
+def test_default_constructor_arguments_build_loop_closure():
+    """SLAMSystem(fx, fy, cx, cy, W, H, cfg) and nothing else: loop closure
+    on the shipped vocabulary, on the card (so only the device is named
+    here, where there is none)."""
+    from hslam_tpu_torch.models.system import SLAMSystem, default_vocab_path
+    slam = SLAMSystem(80.0, 80.0, 63.5, 47.5, 128, 96, tcfg.Config(), device="cpu")
+    assert slam.enable_loop_closure and slam.sequential
+    assert default_vocab_path().endswith("vocab_10k.npz")
+    assert slam.loop_closer.vocab.centroids.shape == (4, 10_000, 8)
+    assert slam.loop_closer.min_gap == 10 and slam.loop_closer.consistency_th == 2
+    assert slam.loop_closer.min_loop_error_rel == 1.0
+    assert slam.n_loops_closed == 0 and slam.connectivity == {}
     slam.close()

@@ -269,7 +269,7 @@ def test_feats_convert_round_trip():
         level=jnp.asarray(rng.integers(0, 4, (F, NF)), jnp.int32),
         desc=jnp.asarray(desc), valid=jnp.asarray(rng.uniform(size=(F, NF)) > 0.3))
     jn = jax.device_get(feats)
-    port = from_numpy(jn)
+    port = from_numpy(jn, "cpu")
     assert isinstance(port, tft.Feats) and port.desc.dtype == torch.int32
     back = to_numpy(port)
     for name in jn._fields:

@@ -140,7 +140,7 @@ def test_trace_on_matches():
     P, u, v, col, wgt, gH, eth, KRKi, Kt, aff, tgt = _trace_setup()
     args = (u, v, col, wgt, gH, eth, np.ones(P, bool), KRKi, Kt, aff, tgt)
     js = jepi.trace_on(jepi.init_trace_state(P), *(jnp.asarray(a) for a in args), JCFG)
-    ts = tepi.trace_on(tepi.init_trace_state(P), *(_t(a) for a in args), CFG)
+    ts = tepi.trace_on(tepi.init_trace_state(P, "cpu"), *(_t(a) for a in args), CFG)
     # a second pass from the traced state exercises the known-interval branch
     js2 = jepi.trace_on(js, *(jnp.asarray(a) for a in args), JCFG)
     ts2 = tepi.trace_on(ts, *(_t(a) for a in args), CFG)
@@ -351,7 +351,7 @@ def test_insert_keypoint_hosted_traces(monkeypatch):
     args = (u, v, typ, valid)
     ji = jks.insert_new_traces(jks.empty_imm(JCFG), jnp.int32(2), *(jnp.asarray(a) for a in args),
                                jnp.asarray(dir0), JCFG, sel_kp=jnp.asarray(kp))
-    ti = tks.insert_new_traces(tks.empty_imm(CFG), 2, *(_t(a) for a in args), _t(dir0), CFG,
+    ti = tks.insert_new_traces(tks.empty_imm(CFG, "cpu"), 2, *(_t(a) for a in args), _t(dir0), CFG,
                                sel_kp=_t(kp))
     np.testing.assert_array_equal(ti.valid.numpy(), _n(ji.valid))
     np.testing.assert_array_equal(ti.kp_idx.numpy(), _n(ji.kp_idx))

@@ -5,7 +5,9 @@ the same frames (recorded here; a slow test runs the JAX package live and
 checks the record), (b) the pipelined entry with the mapping thread under a 3x
 input skip, (c) the kidnapped camera that only relocalization recovers,
 (d) the options that stay refused, and how the mapping thread reports
-failures.
+failures, (e) loop closure in the system: the worker thread live in the
+pipelined run, the online vocabulary bootstrap, the connectivity map
+against the JAX package's, and a large gauge correction of the window.
 
 Outcome-based tolerance for (a): the JAX package loses inserted points to
 fault C1 and the two packages draw different random numbers (C3), so the
@@ -22,7 +24,7 @@ from hslam_tpu.models.system import SLAMSystem as JSLAM
 from hslam_tpu.utils import lie
 from test_system import make_texture, render
 from hslam_tpu_torch.config import Config
-from hslam_tpu_torch.io.synthetic import Scene, make_sequence, sweep_xi
+from hslam_tpu_torch.io.synthetic import Scene, make_sequence, se3_exp_np, sweep_xi
 from hslam_tpu_torch.io.trajectory import ate_rmse
 from hslam_tpu_torch.models.system import SLAMSystem
 
@@ -39,9 +41,10 @@ CFG_KW = dict(max_frames=6, max_points=512, max_immature=512, max_features=512,
 N_FRAMES = 20
 
 
-def _port(sequential=True):
-    return SLAMSystem(FX, FX, CX, CY, W, H, Config(**CFG_KW), enable_loop_closure=False,
-                      sequential=sequential, device="cpu")
+def _port(sequential=True, **kw):
+    kw.setdefault("enable_loop_closure", False)
+    return SLAMSystem(FX, FX, CX, CY, W, H, Config(**CFG_KW), sequential=sequential,
+                      device="cpu", **kw)
 
 
 def _centres(slam, ids):
@@ -119,12 +122,13 @@ def _skip_xi(t):
 
 
 def test_pipelined_input_skip_dt_scaled_tracking():
-    """tests/test_system.py::test_input_skip_dt_scaled_tracking on the port,
-    without loop closure: pipelined tracking and the mapping thread, first
-    on consecutive frames, then on every 3rd frame only. The dt-scaled
-    motion hypotheses must keep every skip-cadence frame tracked."""
+    """tests/test_system.py::test_input_skip_dt_scaled_tracking on the port:
+    pipelined tracking, the mapping thread and the loop-closure worker on
+    the shipped vocabulary, first on consecutive frames, then on every 3rd
+    frame only. The dt-scaled motion hypotheses must keep every skip-cadence
+    frame tracked, and the worker must have seen every keyframe."""
     I0 = make_texture()
-    slam = _port(sequential=False)
+    slam = _port(sequential=False, enable_loop_closure=True)
     gt = {}
 
     def feed(i):
@@ -155,6 +159,14 @@ def test_pipelined_input_skip_dt_scaled_tracking():
     err = ate_rmse(np.array([gt[i] for i in ids]),
                    np.array([s.cam_to_world[:3, 3] for s in slam.shells]))
     assert np.isfinite(err) and err < 0.15, f"ATE too high: {err}"
+    # the loop-closure worker ran live on every keyframe and left no
+    # exception (finish and close would have raised it)
+    assert slam.loop_closer is not None and slam.loop_closer.vocab.n_words == 10_000
+    assert len(slam.loop_closer.entries) >= slam.next_kf_id - 1
+    assert len(slam.lc_detect_ms) == len(slam.loop_closer.entries)
+    assert slam._lc_thread is None and slam._lc_exc is None
+    assert slam.connectivity and all(na >= 0 and nm >= 0
+                                     for na, nm in slam.connectivity.values())
 
 
 @pytest.mark.parametrize("indirect", [True, False], ids=["hybrid", "orb"])
@@ -197,9 +209,8 @@ def test_kidnap_triggers_relocalization(indirect):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(enable_loop_closure=True), dict(online_photo_calib=True),
-    dict(dist_mesh=object()), dict(metrics_path="m.jsonl"),
-], ids=["loop_closure", "photo_calib", "dist_mesh", "metrics_stream"])
+    dict(online_photo_calib=True), dict(dist_mesh=object()), dict(metrics_path="m.jsonl"),
+], ids=["photo_calib", "dist_mesh", "metrics_stream"])
 def test_hybrid_config_still_refuses(kwargs):
     kw = dict(enable_loop_closure=False, sequential=False)
     kw.update(kwargs)
@@ -363,3 +374,212 @@ def test_default_device_is_the_card(monkeypatch):
                       device="cpu")
     assert slam.device.type == "cpu"
     slam.close()
+
+
+# ------------------------------------------------------------ loop closure
+def test_loop_closure_worker_exception_reaches_caller(monkeypatch):
+    """A failure on the loop-closure worker is raised by finish(); with a
+    mapping-thread failure beside it, it rides as that exception's context."""
+    frames, _ = make_sequence(Scene(H, W, FX, n_blobs=16), 10, lambda i: sweep_xi(i / 10.0))
+    slam = _port(sequential=False, enable_loop_closure=True)
+
+    def boom(*a, **k):
+        raise KeyError("worker failed")
+
+    monkeypatch.setattr(slam, "_lc_process", boom)
+    try:
+        for i, f in enumerate(frames):
+            slam.process_frame_pipelined(f, i / 10.0)
+        slam.flush_pipeline()
+        with pytest.raises(KeyError, match="worker failed"):
+            slam.finish()
+        assert slam.initialized and slam._lc_exc is None
+        # both threads failed: the mapping thread's exception is raised, the
+        # worker's is chained to it
+        slam._map_exc, slam._lc_exc = ValueError("mapping failed"), KeyError("worker failed")
+        with pytest.raises(ValueError, match="mapping failed") as info:
+            slam.finish()
+        assert isinstance(info.value.__context__, KeyError)
+    finally:
+        slam.close()
+    assert slam._lc_thread is None and slam._map_thread is None
+
+
+@pytest.mark.parametrize("indirect", [True, False], ids=["stored_features", "orb_on_level_0"])
+def test_online_vocabulary_trains_after_eight_keyframes_and_backfills(indirect):
+    """vocab_path="online": the first 8 keyframes only pool descriptors; the
+    8th trains a k=8, 3-level vocabulary with idf over those keyframes and
+    enters all 8 into the database; the 9th is added and queried. Entries
+    come from _loop_closure_step on a tracked keyframe's state, through both
+    of its branches."""
+    slam = _port(enable_loop_closure=True, vocab_path="online")
+    slam.cfg = Config(**CFG_KW, enable_indirect=indirect)
+    sc = Scene(H, W, FX, n_blobs=16)
+    from hslam_tpu_torch.models import kf_step as KS
+    from hslam_tpu_torch.ops.pyramid import build_direct_pyramid
+    for k in range(9):
+        R, t = se3_exp_np(sweep_xi(k / 5.0))
+        pyr, _ = build_direct_pyramid(torch.from_numpy(sc.render(R, t)), 3)
+        shell = slam._new_shell(k / 5.0, 1.0)
+        shell.kf_id, shell.is_kf = k, True
+        ext = KS.extract_feats(pyr[0][..., 0], slam.cfg)
+        slam.feats = KS.feats_with_slot(slam.feats, k % 6, ext)
+        bundle = KS.KFBundle(*[None] * 17, kp_idepth=np.full(ext[0].shape[0], 0.5, np.float32),
+                             kp_depth_ok=ext[5].numpy())
+        slam._loop_closure_step(k % 6, shell, pyr, bundle)
+        if k < 7:
+            assert slam.loop_closer is None and len(slam._pending_entries) == k + 1
+        else:
+            lc = slam.loop_closer
+            assert lc is not None and lc.vocab.n_words == 512 and len(lc.entries) == k + 1
+    assert slam._pending_entries == [] and slam._vocab_descs == []
+    assert [e.kf_id for e in lc.entries] == list(range(9))
+    idf = lc.vocab.idf.numpy()
+    assert (idf >= 0).all() and idf.max() > 0
+    assert all(abs(e.bow.sum() - 1.0) < 1e-5 for e in lc.entries)
+    assert len(slam.lc_detect_ms) == 1          # only the 9th keyframe queried
+    if not indirect:
+        # without a template no keypoint has a depth
+        assert not lc.entries[0].kp_depth_ok.any()
+
+
+def test_connectivity_matches_jax():
+    """_finalize_kf on the same two bundles in both packages: the
+    connectivity map (active tallies replaced, marginalized ones summed, by
+    keyframe id) and the keyframes it excludes from loop candidates."""
+    from hslam_tpu.models import kf_step as jks
+    from hslam_tpu.models.system import Shell as JShell
+    from hslam_tpu_torch.models import kf_step as tks
+    from hslam_tpu_torch.models.system import Shell as TShell
+    rng = np.random.default_rng(4)
+    F = CFG_KW["max_frames"]
+    marg_total = 0
+    js = JSLAM(FX, FX, CX, CY, W, H, JConfig(**CFG_KW), enable_loop_closure=False)
+    ts = _port()
+    for step, kf_ids in enumerate(([0, 1, 2, 3, -1, -1], [0, 6, 2, 3, 4, 5])):
+        kf_ids = np.array(kf_ids, np.int32)
+        valid = kf_ids >= 0
+        live = valid[:, None] & valid[None, :]
+        fields = dict(
+            rmse=np.float32(1.0), valid=valid, kf_id=kf_ids,
+            Rwc=np.broadcast_to(np.eye(3, dtype=np.float32), (F, 3, 3)).copy(),
+            twc=rng.normal(size=(F, 3)).astype(np.float32),
+            aff=np.zeros((F, 2), np.float32), exposure=np.ones(F, np.float32),
+            calib_value=np.array([FX, FX, CX, CY], np.float32), n_active=np.int32(300),
+            n_active_host=np.full(F, 50, np.int32), n_imm_host=np.full(F, 50, np.int32),
+            sel_count=np.int32(300), removed_host=np.zeros(F, np.int32),
+            conn_active=(rng.integers(0, 40, (F, F)) * (rng.uniform(size=(F, F)) < 0.6)
+                         * live).astype(np.int32),
+            conn_marg=(rng.integers(0, 9, (F, F)) * (rng.uniform(size=(F, F)) < 0.4)
+                       * live).astype(np.int32),
+            flow_ok=np.bool_(True), n_ind=np.int32(7),
+            kp_idepth=np.zeros(8, np.float32), kp_depth_ok=np.zeros(8, bool))
+        assert set(fields) == set(jks.KFBundle._fields) == set(tks.KFBundle._fields)
+        marg_total += int((fields["conn_marg"] * ~np.eye(F, dtype=bool)).sum())
+        flag = np.zeros(F, bool)
+        for slam, shell_cls in ((js, JShell), (ts, TShell)):
+            slam.next_kf_id = 9
+            shell = shell_cls(id=len(slam.shells), timestamp=0.0, exposure=1.0,
+                              cam_to_world=np.eye(4), tracking_ref=None,
+                              cam_to_ref=np.eye(4), aff=np.zeros(2))
+            slam.shells.append(shell)
+        js._finalize_kf((js.shells[-1], 1, flag, jks.KFBundle(**fields), None, None,
+                         0.0, 0.0, 0.0, None))
+        ts._finalize_kf((ts.shells[-1], 1, flag,
+                         tks.KFBundle(**{k: torch.from_numpy(np.array(v))
+                                         for k, v in fields.items()}), None, 0.0))
+        assert ts.connectivity == js.connectivity and len(ts.connectivity) > 4 * (step + 1)
+        for kf in range(7):
+            assert ts._connected_kf_ids(kf) == js._connected_kf_ids(kf)
+    # the marginalized tallies of the two steps added up
+    assert sum(nm for _, nm in ts.connectivity.values()) == marg_total > 0
+    ts._reset()
+    assert ts.connectivity == {}
+
+
+def test_large_loop_correction_keeps_ba_stable():
+    """tests/test_system.py::test_large_loop_correction_keeps_ba_stable on the
+    port: a 25 degree, |t| ~ 1 pose-graph correction re-anchors the window by
+    one common gauge transform, which leaves every relative pose (and so the
+    marginalization prior) untouched: the BA keeps converging, tracking goes
+    on, and the Sim3-aligned ATE stays at clean-run level."""
+    frames, centres = make_sequence(Scene(H, W, FX, n_blobs=16), 24,
+                                    lambda i: sweep_xi(i / 10.0))
+    slam = _port(enable_loop_closure=True)
+    _run_sequential(slam, frames[:14])
+    assert slam.initialized
+    kfs_before = slam.next_kf_id
+    G = np.eye(4)
+    G[:3, :3], G[:3, 3] = se3_exp_np(np.array([0.8, -0.5, 0.3, 0.25, -0.3, 0.2]))
+    before = [s.cam_to_world.copy() for s in slam.shells]
+    old_frames = slam.window.frames
+    evalpt_before = old_frames.evalpt_R.clone()
+    slam._apply_loop_correction({sh.id: G @ sh.cam_to_world for sh in slam.shells if sh.is_kf})
+    # every keyframe moved by the same G, so relative poses are unchanged;
+    # the other frames ride their tracking reference
+    for sh, T0 in zip(slam.shells, before):
+        if sh.is_kf:
+            np.testing.assert_allclose(sh.cam_to_world, G @ T0, atol=1e-9)
+        elif sh.tracking_ref is not None:
+            np.testing.assert_allclose(
+                sh.cam_to_world, slam.shells[sh.tracking_ref].cam_to_world @ sh.cam_to_ref,
+                atol=1e-9)
+    # the window was replaced, not written in place
+    assert slam.window.frames is not old_frames
+    assert torch.equal(old_frames.evalpt_R, evalpt_before)
+    v = slam.window.frames.valid
+    R_new = slam.window.frames.evalpt_R[v].numpy()
+    np.testing.assert_allclose(R_new, evalpt_before[v].numpy() @ G[:3, :3].T, atol=1e-5)
+
+    for i in range(14, 24):
+        slam.process_frame(frames[i], i / 10.0)
+        assert not slam.is_lost, f"lost at {i} after the large correction"
+    assert slam.next_kf_id > kfs_before, "no keyframes after the correction"
+    assert all(np.isfinite(s.cam_to_world).all() and s.pose_valid for s in slam.shells)
+    assert np.isfinite(float(slam.window.frames.state.abs().max()))
+    err = ate_rmse(centres, _centres(slam, range(24)))
+    assert np.isfinite(err) and err < 0.02, err
+    assert len(slam.loop_closer.entries) == slam.next_kf_id - 1
+
+
+@pytest.mark.parametrize("fn", ["from_numpy", "make_calib", "empty_window", "empty_imm",
+                                "empty_feats", "init_trace_state", "load_vocabulary",
+                                "train_vocabulary", "make_graph"])
+def test_constructors_default_to_the_card(fn):
+    """Every public constructor of the port makes its tensors on the card
+    unless the caller names a device (the tests name the CPU)."""
+    import inspect
+    from hslam_tpu_torch import convert
+    from hslam_tpu_torch.models import calib, kf_step, pose_graph, window
+    from hslam_tpu_torch.models.system import default_vocab_path
+    from hslam_tpu_torch.ops import bow, epipolar, features
+    cfg = Config(**CFG_KW)
+    eye = np.eye(3, dtype=np.float32)[None]
+    calls = {
+        "from_numpy": (convert.from_numpy, (np.zeros(3, np.float32),)),
+        "make_calib": (calib.make_calib, (FX, FX, CX, CY, W, H)),
+        "empty_window": (window.empty_window, (cfg, H, W)),
+        "empty_imm": (kf_step.empty_imm, (cfg,)),
+        "empty_feats": (features.empty_feats, (2, 8)),
+        "init_trace_state": (epipolar.init_trace_state, (4,)),
+        "load_vocabulary": (bow.load_vocabulary, (default_vocab_path(),)),
+        "train_vocabulary": (bow.train_vocabulary,
+                             (np.arange(64, dtype=np.uint32).reshape(8, 8), 2, 1, 1)),
+        "make_graph": (pose_graph.make_graph,
+                       (np.ones(1), eye, np.zeros((1, 3)), np.ones(1, bool), np.zeros(1, int),
+                        np.zeros(1, int), (np.ones(1), eye, np.zeros((1, 3))))),
+    }
+    f, args = calls[fn]
+    assert inspect.signature(f).parameters["device"].default == "cuda"
+
+    def device_of(tree):
+        while not isinstance(tree, torch.Tensor):
+            tree = tree[0]
+        return tree.device.type
+
+    if torch.cuda.is_available():
+        assert device_of(f(*args)) == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            f(*args)
+    assert device_of(f(*args, device="cpu")) == "cpu"

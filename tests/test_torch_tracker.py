@@ -82,7 +82,7 @@ def test_build_template_matches(scene):
 
 
 def _port_template(scene):
-    return from_numpy(jax_np(scene["jtemplate"]))
+    return from_numpy(jax_np(scene["jtemplate"]), "cpu")
 
 
 def jax_np(tree):
