@@ -42,7 +42,15 @@ Phases (each failure is fatal; nothing falls back to the CPU):
  11. the loop sequence: the arc, the arc again under exposure flicker, the
      flight back and the revisit (326 frames) through the sequential entry
      with loop closure on, then one large gauge correction of the window and
-     at least 10 more frames, until a keyframe step has run after it.
+     at least 10 more frames, until a keyframe step has run after it;
+ 12. online photometric calibration (bench.py's photocal phase): 72 frames
+     of the arc through an unmodelled gamma 0.7, vignette and exposure, the
+     pipelined entry with the mapping thread, without and then with the
+     calibrator (a fit every 8 frames), held to the JAX package's outcome;
+     the fit timed, and one fit redone on the CPU;
+ 13. checkpoint and the metrics stream: the sequential hybrid system over
+     the 60-frame arc writing its JSONL stream, saved at frame 40, restored
+     bit for bit into a fresh system on the card, both run on to frame 60.
 
 Prints a JSON kernel table on the line before the last, and as the last
 line {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -70,6 +78,15 @@ JAX_CPU_KFS_HYBRID = 5
 # loop closure on (tests/test_torch_loop.py::test_loop_sequence_jax_reference)
 JAX_CPU_LOOP = dict(keyframes=29, valid=326, ate=0.019407264043568895, loops_closed=0,
                     verified_insignificant=16)
+# the same package over phase 12's 72 photocal frames, pipelined, without and
+# with the online calibrator (tests/test_torch_photo_calib.py::
+# test_photocal_sequence_jax_reference): ATE against the camera centres, valid
+# poses, keyframes, and the calibrated run's response error against the true
+# gamma 0.7 (identity: 24.49 levels RMS). The uncalibrated ATE moves with thread
+# timing (0.0075 to 0.0126 over three runs); the calibrated one held 0.0083-0.0085
+JAX_CPU_PHOTOCAL = dict(frames=72, ate_off=0.007532983677308477, valid_off=72, keyframes_off=12,
+                        ate_on=0.008458447826464335, valid_on=72, keyframes_on=12,
+                        err_est=3.4370534879746852)
 LEVEL_ATOL = 1e-4            # tests/test_pallas.py: 0.25*sum vs mean, f32 order
 G2_RTOL, G2_ATOL = 1e-5, 1e-2
 
@@ -191,6 +208,24 @@ def phase_kernel():
                     n_cases += 1
             log(f"[kernel] {kind} {H}x{W} levels {depths} with/without gamma: "
                 f"worst so far max|d|={worst:.3g}")
+    # the calibrated path's input: a corrected float32 frame runs past 255
+    # where 1/V > 1 (up to ~2550 under the vignette clamp) and below 1; the
+    # gamma weight's index is clamped to [0, 255], truncating toward zero
+    cal = torch.rand((480, 640), generator=g) * 2550.0
+    cal[torch.rand((480, 640), generator=g) < 0.1] *= 1.0 / 2550.0
+    cal_dev = cal.to(dev)
+    lv, gr = P.build_direct_pyramid(cal_dev, 6, gw)
+    lp, gp = P.build_direct_pyramid_plain(cal_dev, 6, gw)
+    for a, b in zip(gr, gp):
+        torch.testing.assert_close(a, b, rtol=G2_RTOL, atol=G2_ATOL * 100.0)
+    err_cal = max(float((a - b).abs().max()) for a, b in zip(lv, lp))
+    if not err_cal <= LEVEL_ATOL * 10.0:
+        raise AssertionError(f"pyramid levels of a 0..2550 frame differ by {err_cal}")
+    n_cases += 1
+    log(f"[kernel] f32 480x640 in [0, 2550] (10% below 1) with gamma: max|d| levels "
+        f"{err_cal:.3g} (tol {LEVEL_ATOL * 10.0:g}), g2 "
+        f"{max(float((a - b).abs().max()) for a, b in zip(gr, gp)):.3g} "
+        f"(rtol {G2_RTOL:g}, atol {G2_ATOL * 100.0:g}: values 10x the uint8 range)")
     # the per-level yardstick computes the same function
     img = (torch.rand((480, 640), generator=g) * 255).to(torch.uint8).to(dev)
     lv, gr = P.build_direct_pyramid(img, 6, gw)
@@ -278,11 +313,43 @@ def phase_kernel():
         f"{dev_ms['per_level'][0]:.5f} warm, {dev_ms['per_level'][1]:.5f} cold")
     if not 0.0 < share <= 1.0:
         raise AssertionError(f"share_of_bound {share} is not in (0, 1]")
+
+    # the calibrated path's call: a corrected float32 480x640 frame with the
+    # gamma weight, 6 levels
+    fcal = (torch.rand((480, 640), generator=g) * 300.0).to(dev)
+    n_bytes_f = fcal.numel() * 4 + 16 * sum(h * w for h, w in lay.shapes)
+    bound_f = 1e3 * n_bytes_f / H100_BYTES_PER_S
+    runs_f = {"plain": lambda: P.build_direct_pyramid_plain(fcal, 6, gw),
+              "fused": lambda: P.build_direct_pyramid(fcal, 6, gw)}
+    call_f = [(k, _cuda_ms(runs_f[k])) for k in ("plain", "fused", "fused", "plain")]
+    log("[kernel] 480x640 float32 + gamma 6 levels, call_ms, in turns: "
+        + " ".join(f"{k} {t:.4f}" for k, t in call_f))
+
+    def fused_f32():
+        P.launch_pyramid(fcal, buf, 6, gw)
+
+    for _ in range(20):
+        fused_f32()
+    warm_f = [_span_ms(fused_f32, 200) for _ in range(5)]
+    flush_only = [_span_ms(lambda: flush.fill_(1), 200) for _ in range(5)]
+    cold_f = [_span_ms(cold(fused_f32), 200) for _ in range(5)]
+    dev_f = float(np.median(warm_f))
+    dev_f_cold = float(np.median(cold_f)) - float(np.median(flush_only))
+    share_f = bound_f / dev_f
+    log(f"[kernel] float32 + gamma: device_ms {dev_f:.5f} ({' '.join(f'{t:.5f}' for t in warm_f)}), "
+        f"device_ms_cold {dev_f_cold:.5f}; bound_ms {bound_f:.5f} ({n_bytes_f} B at 3.35 TB/s); "
+        f"share_of_bound {share_f:.4f} warm, {bound_f / dev_f_cold:.4f} cold")
+    if not 0.0 < share_f <= 1.0:
+        raise AssertionError(f"float32 share_of_bound {share_f} is not in (0, 1]")
     return dict(max_abs_err=worst, ms=device_ms, call_ms=call_ms["fused"],
                 device_ms=device_ms, device_ms_cold=device_ms_cold, bound_ms=bound_ms,
                 bound_by="bytes", share_of_bound=share, per_level_ms=call_ms["per_level"],
                 per_level_device_ms=dev_ms["per_level"][0], plain_ms=call_ms["plain"],
-                library_ms=None)
+                library_ms=None,
+                f32_gamma_call_ms=min(t for k, t in call_f if k == "fused"),
+                f32_gamma_device_ms=dev_f, f32_gamma_device_ms_cold=dev_f_cold,
+                f32_gamma_bound_ms=bound_f, f32_gamma_share_of_bound=share_f,
+                f32_gamma_plain_ms=min(t for k, t in call_f if k == "plain"))
 
 
 def _small_state():
@@ -1019,6 +1086,259 @@ def phase_loop_sequence(card):
     return P.kernel_launches
 
 
+PHOTOCAL_FRAMES = 72
+
+
+def _photocal_run(card, frames, exps, centres, enable):
+    """One run of phase 12: the pipelined entry with the mapping thread,
+    bench.py's capacities, with or without the online calibrator. Each fit's
+    inputs are kept (not timed here: no sync enters the run)."""
+    from hslam_tpu_torch.io.trajectory import ate_rmse
+    from hslam_tpu_torch.models.system import SLAMSystem
+    from hslam_tpu_torch.ops import pyramid as P
+    H, W, FX = 480, 640, 320.0
+    slam = SLAMSystem(FX, FX, W / 2 - 0.5, H / 2 - 0.5, W, H, _hybrid_cfg(), sequential=False,
+                      online_photo_calib=enable, photo_calib_every=8, enable_loop_closure=False)
+    fits = []
+    real_fit = slam._pc_fit
+
+    def recording_fit(*args, **kw):
+        out = real_fit(*args, **kw)
+        fits.append((args, kw, out))
+        return out
+
+    slam._pc_fit = recording_fit
+    tag = "[photocal on]" if enable else "[photocal off]"
+    try:
+        torch.cuda.synchronize()
+        P.kernel_launches = 0
+        P.plain_calls = 0
+        done_ms = []
+        n_cal = 0          # frames dispatched with the correction on (float32 + gamma)
+        t_all = time.perf_counter()
+        for i, f in enumerate(frames):
+            t0 = time.perf_counter()
+            n_cal += slam._pc_luts is not None
+            out = slam.process_frame_pipelined(f, 0.05 * i, exposure=exps[i])
+            torch.cuda.synchronize()
+            if out is not None:
+                done_ms.append(1e3 * (time.perf_counter() - t0))
+        slam.flush_pipeline()
+        slam.finish()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_all
+        launches, plain = P.kernel_launches, P.plain_calls
+    finally:
+        slam.close()
+    valid = [s.id for s in slam.shells if s.pose_valid]
+    finite = all(np.all(np.isfinite(s.cam_to_world)) for s in slam.shells)
+    ate = ate_rmse(centres[valid], np.array([slam.shells[i].cam_to_world[:3, 3] for i in valid]))
+    n = len(frames)
+    p50 = float(np.percentile(done_ms, 50))
+    log(f"{tag} {card} | frames {n} wall {wall:.2f}s fps {n / wall:.2f} completion ms p50 "
+        f"{p50:.2f} p95 {float(np.percentile(done_ms, 95)):.2f}; initialized={slam.initialized} "
+        f"keyframes={slam.next_kf_id} pose_valid={len(valid)}/{n} lost={slam.is_lost} "
+        f"retries={slam.n_track_retries} relocs={slam.n_relocs} ATE={ate:.6f}; pyramid launches "
+        f"{launches} (builds {n + slam.n_track_retries}; {n_cal} frames float32 + gamma) plain "
+        f"calls {plain}")
+    if not slam.initialized or slam.is_lost or not finite:
+        raise AssertionError(f"{tag}: not initialized, lost or non-finite poses")
+    if launches != n + slam.n_track_retries or plain != 0 or (enable and n_cal == 0):
+        raise AssertionError(f"{tag}: pyramid launches {launches} (want one per pyramid, "
+                             f"{n + slam.n_track_retries}), plain calls {plain}, "
+                             f"{n_cal} calibrated")
+    return dict(slam=slam, fits=fits, fit=real_fit, ate=ate, valid=len(valid), fps=n / wall,
+                p50=p50, launches=launches)
+
+
+def phase_photocal(card):
+    """bench.py's photocal phase on the port: without, then with the online
+    calibrator, in one call; the calibrated run held to the JAX package's."""
+    from hslam_tpu_torch.io.synthetic import Scene, make_photocal_frames
+    from hslam_tpu_torch.models import photo_calib as PC
+    from hslam_tpu_torch.ops.undistort import photometric_correct
+    frames, exps, centres = make_photocal_frames(Scene(480, 640, 320.0), PHOTOCAL_FRAMES)
+    off = _photocal_run(card, frames, exps, centres, False)
+    on = _photocal_run(card, frames, exps, centres, True)
+    slam, ref = on["slam"], JAX_CPU_PHOTOCAL
+    rms = float(slam._pc_rms) if slam._pc_rms is not None else float("nan")
+    lut = PC.gamma_lut(slam._pc_params).cpu().numpy().astype(np.float64)
+    x = np.arange(256.0)
+    truth = 255.0 * (x / 255.0) ** 0.7
+    err_est = float(np.sqrt(np.mean((lut - truth) ** 2)))
+    err_id = float(np.sqrt(np.mean((x - truth) ** 2)))
+    vm = PC.vignette_map(slam._pc_params, 480, 640).cpu().numpy()
+    bar = max(1.5 * ref["ate_on"], 0.02)
+    log(f"[photocal] {card} | ATE without {off['ate']:.6f} with {on['ate']:.6f} (bar {bar:.4f}; "
+        f"JAX CPU {ref['ate_off']:.6f} / {ref['ate_on']:.6f}); valid {off['valid']} / "
+        f"{on['valid']} (JAX CPU {ref['valid_off']} / {ref['valid_on']}); fps {off['fps']:.2f} / "
+        f"{on['fps']:.2f}; completion p50 {off['p50']:.2f} / {on['p50']:.2f} ms")
+    log(f"[photocal] fits {slam.n_photo_fits}, final rms {rms:.5f}; response rmse to gamma 0.7 "
+        f"{err_est:.3f} levels (identity {err_id:.3f}, JAX CPU {ref['err_est']:.3f}; bar "
+        f"{0.6 * err_id:.3f}); vignette centre {vm[240, 320]:.5f} corner {vm[0, 0]:.5f}")
+
+    # each fit again, synchronised: its time, and its result against the run's
+    fit_ms, redo = [], 0.0
+    for args, kw, out in on["fits"]:
+        again, ms = _timed(lambda: on["fit"](*args, **kw))
+        fit_ms.append(ms)
+        redo = max([redo] + [float((a - b).abs().max()) for a, b in zip(out[1:], again[1:])])
+    # the first fit once more with its Jacobian by forward-mode AD (the JAX
+    # package's route, torch.func.jacfwd) in place of the written-out one
+    real_gn = PC._gn_functions
+
+    def ad_gn(*a, **k):
+        res, _, n_mask = real_gn(*a, **k)
+        return res, torch.func.jacfwd(res), n_mask
+
+    args, kw, _ = on["fits"][0]
+    PC._gn_functions = ad_gn
+    try:
+        on["fit"](*args, **kw)
+        ad_ms = [_timed(lambda: on["fit"](*args, **kw))[1] for _ in range(2)]
+    finally:
+        PC._gn_functions = real_gn
+    # the per-frame correction at 480x640
+    inv_resp, inv_vig, _ = slam._pc_luts
+    raw = torch.from_numpy(frames[-1]).cuda()
+    corr_ms = _cuda_ms(lambda: photometric_correct(raw.to(torch.float32), inv_resp, inv_vig))
+    log(f"[photocal] {card} | ms per fit (synchronised, again on the run's inputs): "
+        f"{' '.join(f'{t:.1f}' for t in fit_ms)}; max |redone - run| {redo:.3g}; the first "
+        f"fit with the Jacobian by forward-mode AD {' '.join(f'{t:.1f}' for t in ad_ms)}; "
+        f"per-frame correction {corr_ms:.4f} ms (CUDA events, median of 50)")
+    # the first fit on the CPU from the same observations
+    (obs, r2, mask, exp, known, *_), _, first = on["fits"][0]
+    F = obs.shape[1]
+    p_cpu, rms_cpu = PC.calibrate(PC.init_params(F, device="cpu"), obs.cpu(), torch.arange(F),
+                                  r2.cpu(), mask.cpu(), exp_known=exp.cpu() if known else None)
+    d_lut = float((PC.gamma_lut(p_cpu) - PC.gamma_lut(first[0]).cpu()).abs().max())
+    d_rms = abs(float(rms_cpu) - float(first[1]))
+    log(f"[photocal] first fit ({int(mask.sum())} observations of {obs.shape[0]} points in {F} "
+        f"frames, exposure known={known}) redone on the CPU: max|LUT cpu - cuda| {d_lut:.3g} "
+        f"levels, |rms cpu - cuda| {d_rms:.3g}")
+
+    failures = []
+    if on["valid"] < ref["valid_on"]:
+        failures.append(f"{on['valid']} valid poses (JAX CPU {ref['valid_on']})")
+    if not on["ate"] <= bar:
+        failures.append(f"ATE {on['ate']} above {bar}")
+    if not (np.isfinite(rms) and slam.n_photo_fits >= 1):
+        failures.append(f"calibrator: {slam.n_photo_fits} fits, rms {rms}")
+    if not err_est < 0.6 * err_id:
+        failures.append(f"response rmse {err_est} not below 0.6 x identity's {err_id}")
+    if not vm[0, 0] < vm[240, 320]:
+        failures.append("vignette not darker at the corners")
+    if not redo <= 1e-3 or not d_lut <= 0.05 or not d_rms <= 1e-3:
+        failures.append(f"the fit redone differs by {redo}, on the CPU by {d_lut} (LUT), "
+                        f"{d_rms} (rms)")
+    if failures:
+        raise AssertionError("photocal: " + "; ".join(failures))
+    return off["launches"] + on["launches"]
+
+
+def _state_leaves(system):
+    from hslam_tpu_torch.io import checkpoint as ckpt
+    out = {}
+    for prefix, tree in (("window", system.window), ("immt", system.imm),
+                         ("feats", system.feats), ("template", system.template)):
+        out.update(ckpt._named_leaves(tree, prefix))
+    out["calib/value"] = system.calib.value
+    out["calib/value_zero"] = system.calib.value_zero
+    return out
+
+
+def phase_checkpoint(card):
+    """Checkpoint and the metrics stream on the card: the sequential hybrid
+    system (no loop closure: a checkpoint carries none of its state) over the
+    60-frame arc with its JSONL stream, saved at frame 40 and restored into a
+    fresh system; both run on to frame 60."""
+    import tempfile
+    from hslam_tpu_torch.io import checkpoint as ckpt
+    from hslam_tpu_torch.io.synthetic import Scene, make_sequence
+    from hslam_tpu_torch.io.trajectory import ate_rmse
+    from hslam_tpu_torch.models.system import SLAMSystem
+    from hslam_tpu_torch.ops import pyramid as P
+    H, W, FX, SNAP = 480, 640, 320.0, 40
+    frames, centres = make_sequence(Scene(H, W, FX), SEQ_FRAMES)
+    args = (FX, FX, W / 2 - 0.5, H / 2 - 0.5, W, H, _hybrid_cfg())
+    with tempfile.TemporaryDirectory() as tmp:
+        metrics = os.path.join(tmp, "metrics.jsonl")
+        a = SLAMSystem(*args, enable_loop_closure=False, metrics_path=metrics)
+        torch.cuda.synchronize()
+        P.kernel_launches = 0
+        P.plain_calls = 0
+        tracked = []
+        for i in range(SNAP):
+            if a.initialized:
+                tracked.append(i)
+            a.process_frame(frames[i], 0.05 * i)
+        path = os.path.join(tmp, "state.npz")
+        t0 = time.perf_counter()
+        ckpt.save_state(path, a)
+        t1 = time.perf_counter()
+        b = SLAMSystem(*args, enable_loop_closure=False)
+        ckpt.load_state(path, b)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        size = os.path.getsize(path)
+        la, lb = _state_leaves(a), _state_leaves(b)
+        same = la.keys() == lb.keys() and all(
+            lb[k].device.type == "cuda" and la[k].dtype == lb[k].dtype and torch.equal(la[k], lb[k])
+            for k in la)
+        same = same and all(np.array_equal(getattr(a, m), getattr(b, m)) for m in ckpt._MIRRORS)
+        same = same and [s.cam_to_world.tolist() for s in a.shells] == [
+            s.cam_to_world.tolist() for s in b.shells]
+        for i in range(SNAP, SEQ_FRAMES):
+            tracked.append(i)
+            a.process_frame(frames[i], 0.05 * i)
+            b.process_frame(frames[i], 0.05 * i)
+        torch.cuda.synchronize()
+        launches, plain = P.kernel_launches, P.plain_calls
+        a.close()
+        b.close()
+        recs = [json.loads(line) for line in open(metrics)]
+    bar = max(1.5 * JAX_CPU_ATE_HYBRID, 0.02)
+    out = {}
+    for name, s in (("straight", a), ("restored", b)):
+        valid = [x.id for x in s.shells if x.pose_valid]
+        out[name] = (len(valid), ate_rmse(centres[valid], np.array(
+            [s.shells[i].cam_to_world[:3, 3] for i in valid])), s.next_kf_id)
+    gap = max(float(np.abs(x.cam_to_world - y.cam_to_world).max())
+              for x, y in zip(a.shells, b.shells))
+    by_t = {t: [r for r in recs if r["t"] == t] for t in ("frame", "kf", "map")}
+    log(f"[checkpoint] {card} | save {1e3 * (t1 - t0):.1f} ms, {size} B; load onto the card "
+        f"{1e3 * (t2 - t1):.1f} ms; {len(la)} tensors restored bit for bit: {same}")
+    log(f"[checkpoint] on to frame {SEQ_FRAMES}: straight valid {out['straight'][0]} ATE "
+        f"{out['straight'][1]:.6f} keyframes {out['straight'][2]}; restored valid "
+        f"{out['restored'][0]} ATE {out['restored'][1]:.6f} keyframes {out['restored'][2]} "
+        f"(bar {bar:.4f}); max |pose difference| {gap:.3g} (float atomics, not compared); "
+        f"pyramid launches {launches} plain {plain}")
+    log(f"[metrics] records frame {len(by_t['frame'])} (tracked frames {len(tracked)}), kf "
+        f"{len(by_t['kf'])}, map {len(by_t['map'])} (keyframes after the bootstrap "
+        f"{a.next_kf_id - 1}); last map record {len(by_t['map'][-1]['pts'])} points, "
+        f"{len(by_t['map'][-1]['kfs'])} keyframes")
+    failures = []
+    if not same:
+        failures.append("the restored state is not the saved one bit for bit")
+    for name, (nv, ate, _) in out.items():
+        if nv != SEQ_FRAMES or not ate <= bar:
+            failures.append(f"{name}: {nv} valid poses, ATE {ate}")
+    if [r["id"] for r in by_t["frame"]] != tracked:
+        failures.append("frame records are not one per tracked frame")
+    kf_ids = list(range(1, a.next_kf_id))
+    if ([r["kf_id"] for r in by_t["kf"]] != kf_ids
+            or [r["kf_id"] for r in by_t["map"]] != kf_ids):
+        failures.append("kf/map records are not one per keyframe")
+    if not all(np.isfinite(np.asarray(r["pts"], np.float64)).all() and len(r["pts"]) > 0
+               for r in by_t["map"]):
+        failures.append("a map record holds no or non-finite points")
+    if launches != SEQ_FRAMES + (SEQ_FRAMES - SNAP) or plain != 0:
+        failures.append(f"pyramid launches {launches}, plain {plain}")
+    if failures:
+        raise AssertionError("checkpoint: " + "; ".join(failures))
+    return launches
+
+
 def main():
     card = phase_environment()
     phase_build()
@@ -1031,6 +1351,8 @@ def main():
     phase_loop_modules(card)
     phase_loop_closer(card)
     launches += phase_loop_sequence(card)
+    launches += phase_photocal(card)
+    launches += phase_checkpoint(card)
     log(json.dumps({"kernels": [{
         "name": "pyramid_fused", "route": "cuda",
         "source": "hslam_tpu_torch/csrc/pyramid.cu",

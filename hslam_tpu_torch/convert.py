@@ -11,6 +11,9 @@ int32 with the same bits (ops/orb.py). uint32 arrays therefore cross as a
 `.view(np.int32)`, and `to_numpy` gives Feats.desc and Vocabulary.centroids
 back as uint32, so a round trip is bit-exact.
 
+Photometric calibration: PhotoParams crosses like the state, so a parity
+test can start the port's warm refit from the JAX package's parameters.
+
 Loop closure: a Vocabulary and a PoseGraph cross like any other structure
 (the vocabulary's k, levels and n_words are plain ints). The loop closer's
 database is a list of KeyframeEntry dataclasses of numpy arrays on both
@@ -28,6 +31,7 @@ from .models import calib as _calib
 from .models import kf_step as _ks
 from .models import loop_closure as _lc
 from .models import optimizer as _opt
+from .models import photo_calib as _pc
 from .models import pose_graph as _pg
 from .models import window as _w
 from .ops import ba as _ba
@@ -40,7 +44,7 @@ _PORT_TYPES = {cls.__name__: cls for cls in (
     _w.Window, _w.Frames, _w.Points, _ks.Imm, _ks.KFBundle, _epi.TraceState,
     _trk.Template, _trk.TrackResult, _calib.Calib, _ft.Feats,
     _ba.Linearization, _ba.GNSystem, _ba.FrozenResiduals, _opt.BAResult,
-    _bow.Vocabulary, _pg.PoseGraph)}
+    _bow.Vocabulary, _pg.PoseGraph, _pc.PhotoParams)}
 
 
 def _is_namedtuple(x) -> bool:

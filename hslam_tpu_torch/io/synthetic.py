@@ -9,7 +9,8 @@ Camera: `arc_xi` is bench.py's arc; poses are worldToCam (R, t) =
 se3_exp(xi), and the ground-truth camera centre is -R^T t.
 `make_loop_frames` continues a rendered arc into bench.py's loop sequence:
 the arc again under exposure flicker, a flight back to the start, and the
-first seconds re-traced.
+first seconds re-traced. `make_photocal_frames` renders the arc through an
+unmodelled response, vignette and exposure (bench.py's photocal phase).
 """
 from __future__ import annotations
 
@@ -164,3 +165,27 @@ def make_loop_frames(scene: Scene, n_arc: int, n_rep: int = LOOP_REP,
     for k in range(n_rev):
         emit(arc_xi(k * 0.05))
     return frames, np.stack(centres), stamps
+
+
+def make_photocal_frames(scene: Scene, n_frames: int, gamma: float = 0.7,
+                         vignette_a2: float = -0.45):
+    """bench.py's photocal sequence (bench.py:160-181): the arc seen through
+    a nonlinear response G(x) = 255 (x / 255)^gamma, a radial vignette
+    1 + a2 r^2 (r normalized to the image corner, as the calibrator's
+    radial basis) and the exposure 1 + 0.35 sin(0.45 i), quantized to uint8
+    sensor frames. Returns (frames, exposures, camera centres (N, 3))."""
+    H, W = scene.height, scene.width
+    ys, xs = np.mgrid[0:H, 0:W]
+    r2 = ((xs - scene.cx) ** 2 + (ys - scene.cy) ** 2) / (scene.cx ** 2 + scene.cy ** 2)
+    vignette = 1.0 + vignette_a2 * r2
+    frames: List[np.ndarray] = []
+    exps, centres = [], []
+    for i in range(n_frames):
+        R, t = se3_exp_np(arc_xi(0.05 * i))
+        exp = 1.0 + 0.35 * np.sin(0.45 * i)
+        irr = np.clip(scene.render(R, t) / 255.0, 0.0, 1.0)
+        raw = 255.0 * np.clip(exp * vignette * irr, 0.0, 1.0) ** gamma
+        frames.append(np.clip(np.round(raw), 0, 255).astype(np.uint8))
+        exps.append(exp)
+        centres.append(-R.T @ t)
+    return frames, exps, np.stack(centres)

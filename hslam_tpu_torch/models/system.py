@@ -35,13 +35,25 @@ place (the keypoint store, the window, the calibration). A mapping-thread
 exception is raised on the tracking thread at its next call, by `finish`
 or by `close`; a worker exception by `finish` or `close`.
 
-Refused with NotImplementedError, not silently skipped: online photometric
-calibration, point-sharded BA (`dist_mesh`) and the metrics stream
-(`metrics_path`).
+Online photometric calibration (`online_photo_calib`): frames arrive raw;
+every `photo_calib_every`-th tracked frame the template is warped into the
+last frames, their raw intensities sampled and response, vignette and
+exposures fitted jointly on the device (models/photo_calib.py). From the
+first fit on, each frame is corrected (inverse response and vignette) before
+its pyramid and its gradients are re-weighted by the response's derivative;
+the state built from uncorrected frames is re-corrected once (the template
+by the tracking thread, the window at the next keyframe step), and later
+fits are blended into the correction. `metrics_path` streams JSONL records:
+one "frame" per tracked frame of `process_frame`, one "kf" and one "map"
+(the window's point cloud) per keyframe.
+
+Refused with NotImplementedError, not silently skipped: point-sharded BA
+(`dist_mesh`).
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import threading
 import time as _time
@@ -51,8 +63,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..config import Config
+from ..config import PATTERN, Config
 from ..models import kf_step as KS
+from ..models import photo_calib as PC
 from ..models import window as W
 from ..models.calib import k_pyr_from_value, make_calib
 from ..models.loop_closure import LoopCloser
@@ -65,9 +78,11 @@ from ..ops import pnp as pnp_ops
 from ..ops import selector as sel_ops
 from ..ops import tracker as trk_ops
 from ..ops import twoview as tv_ops
-from ..ops.pyramid import build_direct_pyramid, gaussian_blur7
+from ..ops.pyramid import build_direct_pyramid, gaussian_blur7, image_gradients
+from ..ops.undistort import invert_response, photometric_correct, response_grad_weight
 from ..utils import lie
 from ..utils.compaction import assign_free_slots, scatter_update
+from ..utils.interp import bilinear, bilinear_stack
 
 
 @dataclasses.dataclass
@@ -177,6 +192,24 @@ def init_seed(wnd: W.Window, feats: FT.Feats, img0, u, v, cand_ok, idepth,
     return window, feats, cand_ok.sum()
 
 
+def map_cloud(frames: W.Frames, points: W.Points, calib_value):
+    """World-space position of every point slot, its validity and its centre
+    colour: the live-map feed (Src/Display.cpp:382-441, with the noise
+    filter of :409-421; depth-prior'd bootstrap points keep
+    max_rel_baseline 0 and pass through their prior)."""
+    fx, fy, cx, cy = calib_value[0], calib_value[1], calib_value[2], calib_value[3]
+    R, t = W.frame_poses(frames)                       # worldToCam
+    z = 1.0 / torch.clamp(points.idepth, min=1e-6)
+    pc = torch.stack([(points.u - cx) / fx * z, (points.v - cy) / fy * z, z], -1)
+    host = torch.clamp(points.host.long(), 0, R.shape[0] - 1)
+    xyz = torch.einsum("pji,pj->pi", R[host], pc - t[host])
+    id_var = 1.0 / (points.idepth_hessian + 0.01)
+    ok = ((points.status == W.PT_ACTIVE) & (points.idepth > 1e-6)
+          & ((points.max_rel_baseline >= 0.01) | (points.prior > 0))
+          & (id_var <= 1e-2 * z * z * z * z))
+    return xyz, ok, points.color[:, 4]
+
+
 class SLAMSystem:
     """Monocular hybrid direct-indirect SLAM engine on torch."""
 
@@ -188,23 +221,24 @@ class SLAMSystem:
 
     def __init__(self, fx, fy, cx, cy, width, height, cfg: Config = Config(),
                  enable_loop_closure: bool = True, sequential: bool = True,
-                 online_photo_calib: bool = False, dist_mesh=None,
-                 vocab_path: Optional[str] = None,
+                 online_photo_calib: bool = False, photo_calib_every: int = 8,
+                 dist_mesh=None, vocab_path: Optional[str] = None,
                  metrics_path: Optional[str] = None,
                  device: str | torch.device = "cuda"):
-        """`vocab_path`: the BoW vocabulary of loop closure (.npz of
+        """`online_photo_calib`: frames are raw; response, vignette and
+        exposures are fitted online every `photo_calib_every` tracked frames
+        (exposures passed to the entries pin the fit's gauge).
+
+        `vocab_path`: the BoW vocabulary of loop closure (.npz of
         ops.bow.save_vocabulary). The default (None) loads the shipped
         10^4-word vocabulary; "online" trains a small one from the first 8
-        keyframes of the run instead; anything else is a path to your own."""
-        unported = {
-            "online_photo_calib=True": online_photo_calib,
-            "dist_mesh": dist_mesh is not None,
-            "metrics_path": metrics_path is not None,
-        }
-        bad = [k for k, v in unported.items() if v]
-        if bad:
-            raise NotImplementedError(
-                "not ported to hslam_tpu_torch yet: " + ", ".join(bad))
+        keyframes of the run instead; anything else is a path to your own.
+
+        `metrics_path`: a JSONL stream of "frame", "kf" and "map" records
+        (one json.dumps per record, no extra device pulls but the map
+        record's point cloud)."""
+        if dist_mesh is not None:
+            raise NotImplementedError("not ported to hslam_tpu_torch yet: dist_mesh")
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -214,6 +248,18 @@ class SLAMSystem:
         self.calib = make_calib(fx, fy, cx, cy, width, height, device=self.device)
         self.width, self.height = width, height
         self.enable_loop_closure = enable_loop_closure
+        # online photometric calibration; the correction (inverse response,
+        # inverse vignette, gradient weight) is one tuple, replaced whole
+        self.online_photo_calib = online_photo_calib
+        self.photo_calib_every = photo_calib_every
+        self._pc_blend = 0.3                # refit blend rate
+        self._pc_ring: deque = deque(maxlen=photo_calib_every)   # (shell id, raw frame)
+        self._pc_params: Optional[PC.PhotoParams] = None
+        self._pc_rms: Optional[torch.Tensor] = None   # device scalar
+        self._pc_luts = None                # (inv_response, inv_vignette, grad_weight)
+        self._pc_window_resync = False      # first fit landed: the mapping thread
+                                            # re-corrects the window at its next keyframe
+        self.n_photo_fits = 0
         self.loop_closer: Optional[LoopCloser] = None   # built once a vocabulary exists
         self._vocab_descs: list = []      # descriptor pool for online training
         self._pending_entries: list = []  # keyframe entries awaiting the vocabulary
@@ -226,6 +272,8 @@ class SLAMSystem:
                 bow_ops.load_vocabulary(vocab_path, device=self.device))
         self.n_loops_closed = 0
         self.n_relocs = 0            # successful PnP relocalizations
+        self._metrics_f = open(metrics_path, "w") if metrics_path else None
+        self._metrics_lock = threading.Lock()
         self.window = W.empty_window(cfg, height, width, device=self.device)
         self.imm = KS.empty_imm(cfg, device=self.device)
         self.feats = FT.empty_feats(cfg.max_frames, cfg.max_kf_features, device=self.device)
@@ -361,9 +409,10 @@ class SLAMSystem:
     def process_frame(self, image: np.ndarray, timestamp: float,
                       exposure: float = 1.0) -> Shell:
         """ProcessNewFrame (System.cpp:104-247). `image`: (H, W) grayscale,
-        uint8 or float, geometrically and photometrically corrected."""
+        uint8 or float, geometrically corrected; photometrically corrected
+        too unless online_photo_calib is on (then raw intensities)."""
         raw = torch.as_tensor(np.ascontiguousarray(image)).to(self.device)
-        pyr, grads = build_direct_pyramid(raw, self.cfg.pyr_levels)
+        pyr, grads = self._pyramid(raw)
         shell = self._new_shell(timestamp, exposure)
         self._raise_map_exc()
         if not self.initialized:
@@ -373,7 +422,14 @@ class SLAMSystem:
         if not self._track_new_coarse(shell, pyr):
             self.is_lost = True
             return shell
+        if self.online_photo_calib:
+            self._pc_observe(shell.id, raw)
         need_kf = self._need_keyframe(shell)
+        self._emit_metrics(
+            t="frame", id=shell.id, ts=timestamp, kf=bool(need_kf),
+            rmse=float(self.last_coarse_rmse[0]), pose_valid=bool(shell.pose_valid),
+            reloc=bool(shell.relocalized),
+            p=[round(float(x), 4) for x in shell.cam_to_world[:3, 3]])
         if self.sequential:
             if need_kf:
                 self._add_keyframe(shell, pyr, grads)
@@ -402,12 +458,11 @@ class SLAMSystem:
         if self.sequential:
             raise RuntimeError("process_frame_pipelined needs sequential=False")
         self._raise_map_exc()
-        cfg = self.cfg
         shell = self._new_shell(timestamp, exposure)
         if not self.initialized:
             self.flush_pipeline()
             raw = torch.as_tensor(np.ascontiguousarray(image)).to(self.device)
-            pyr, grads = build_direct_pyramid(raw, cfg.pyr_levels)
+            pyr, grads = self._pyramid(raw)
             self._try_initialize(shell, pyr, grads)
             if self.initialized:
                 # seed the device frontier at the second init keyframe
@@ -432,11 +487,9 @@ class SLAMSystem:
         # the frame crosses to the device in its own dtype (uint8: 4x fewer
         # bytes); the pyramid casts it there
         raw = torch.as_tensor(np.ascontiguousarray(image)).to(self.device)
-        out = trk_ops.track_step(
-            self.template, raw, self.calib.value, self._f32(ref_c2w),
-            self._dev_prev, self._dev_prevprev, self._frontier_frames >= 2,
-            self._dev_aff, self._f32(self.ref_exposure), self._f32(shell.exposure),
-            self._f32(self.ref_aff), cfg, cfg.pyr_levels, dt_ratio=dt_ratio)
+        out = self._track_step(raw, self._f32(ref_c2w), self._dev_prev, self._dev_prevprev,
+                               self._frontier_frames >= 2, self._dev_aff, shell.exposure,
+                               dt_ratio)
         self._pipe.append((shell, out, raw))
         self._dev_prevprev = self._dev_prev
         self._dev_prev = out.c2w
@@ -470,7 +523,6 @@ class SLAMSystem:
         retry from a reset motion frontier if the batched winner was
         rejected (then relocalize, then keep the predicted pose), decide the
         keyframe and hand the frame to the mapping thread."""
-        cfg = self.cfg
         R_h, t_h, aff_h, ok_h, res_h, flow_h = self._pull_track(out)    # host sync
         ok = ok_h and np.isfinite(res_h[0]) and np.all(np.isfinite(t_h))
         if ok:
@@ -489,11 +541,8 @@ class SLAMSystem:
             with self._shell_lock:
                 ref_c2w = self.shells[self.ref_shell_id].cam_to_world.copy()
             ref_dev = self._f32(ref_c2w)
-            ref_aff = self._f32(self.ref_aff)
-            out2 = trk_ops.track_step(
-                self.template, raw, self.calib.value, ref_dev, ref_dev, ref_dev, False,
-                ref_aff, self._f32(self.ref_exposure), self._f32(shell.exposure), ref_aff,
-                cfg, cfg.pyr_levels, dt_ratio=1.0)
+            out2 = self._track_step(raw, ref_dev, ref_dev, ref_dev, False,
+                                    self._f32(self.ref_aff), shell.exposure, 1.0)
             R2, t2, aff2, ok2, res2, flow2 = self._pull_track(out2)       # host sync
             if ok2 and np.isfinite(res2[0]) and np.all(np.isfinite(t2)):
                 self.last_coarse_rmse = np.where(np.isnan(res2), 100.0, np.minimum(res2, 1e9))
@@ -519,8 +568,196 @@ class SLAMSystem:
             self._dev_prev = self._f32(shell.cam_to_world)
             self._dev_prevprev = self._dev_prev
             self._dev_aff = self._f32(shell.aff)
+        if self.online_photo_calib:
+            self._pc_observe(shell.id, raw)
         self._enqueue(shell, out.pyr, out.grads, self._need_keyframe(shell))
         return shell
+
+    def _track_step(self, raw, ref_c2w, prev_c2w, prevprev_c2w, have_motion, aff0,
+                    exposure, dt_ratio):
+        """The fused per-frame tracking step on the staged frame, against
+        the current template; with the online calibration's correction once
+        a fit exists (the correction, then the pyramid with the gradient
+        weight, as the sequential entry builds it)."""
+        cfg = self.cfg
+        img, grad_w = raw, None
+        luts = self._pc_luts
+        if luts is not None:
+            inv_resp, inv_vig, grad_w = luts
+            img = photometric_correct(raw.to(torch.float32), inv_resp, inv_vig)
+        return trk_ops.track_step(
+            self.template, img, self.calib.value, ref_c2w, prev_c2w, prevprev_c2w,
+            have_motion, aff0, self._f32(self.ref_exposure), self._f32(exposure),
+            self._f32(self.ref_aff), cfg, cfg.pyr_levels, gamma_grad_weight=grad_w,
+            dt_ratio=dt_ratio)
+
+    # ------------------------------------------- online photometric calibration
+    def _pyramid(self, raw):
+        """The frame's pyramid, through the calibrated correction once the
+        online calibration has made its first fit."""
+        luts = self._pc_luts
+        if luts is None:
+            return build_direct_pyramid(raw, self.cfg.pyr_levels)
+        return self._prep_calibrated(raw, *luts)
+
+    def _prep_calibrated(self, raw, inv_resp, inv_vig, grad_w):
+        """Photometric correction, then the pyramid with the response's
+        gradient weight (photometricUndistorter.cpp:121-146, Frame.cpp:158-164).
+        Corrected intensities run past 255 where 1/V > 1; the weight's index
+        is clamped in the pyramid."""
+        img = photometric_correct(raw.to(torch.float32), inv_resp, inv_vig)
+        return build_direct_pyramid(img, self.cfg.pyr_levels, gamma_grad_weight=grad_w)
+
+    def _pc_observe(self, shell_id: int, raw):
+        """Ring the tracked frame's raw image; refit every photo_calib_every
+        frames once the ring is full."""
+        self._pc_ring.append((shell_id, raw))
+        if (len(self._pc_ring) == self._pc_ring.maxlen
+                and shell_id % self.photo_calib_every == 0):
+            self._photo_calib_step()
+
+    def _pc_sample(self, u, v, idepth, valid, K4, R_rel, t_rel, raws):
+        """Raw intensities of the template points (u, v, idepth, valid: (P,))
+        warped into each ring frame (R_rel, t_rel: (F, 3, 3), (F, 3) from the
+        reference; raws (F, H, W), any dtype). Returns obs, r2, mask (P, F)."""
+        raws = raws.to(torch.float32)
+        fx, fy, cx, cy = K4[0], K4[1], K4[2], K4[3]
+        Hh, Ww = raws.shape[1], raws.shape[2]
+        dirs = torch.stack([(u - cx) / fx, (v - cy) / fy, torch.ones_like(u)], -1)
+        p3 = (torch.einsum("fij,pj->fpi", R_rel, dirs)
+              + t_rel[:, None, :] * idepth[None, :, None])          # (F, P, 3)
+        z = torch.where(p3[..., 2].abs() < 1e-9, 1e-9, p3[..., 2])
+        uu = fx * p3[..., 0] / z + cx
+        vv = fy * p3[..., 1] / z + cy
+        inb = (z > 0) & (uu > 1) & (vv > 1) & (uu < Ww - 2) & (vv < Hh - 2)
+        obs = bilinear_stack(raws, uu, vv)                           # (F, P)
+        ccx, ccy = (Ww - 1) / 2.0, (Hh - 1) / 2.0
+        r2 = ((uu - ccx) ** 2 + (vv - ccy) ** 2) / (ccx * ccx + ccy * ccy)
+        mask = inb & valid[None, :] & torch.isfinite(obs)
+        return obs.T, r2.T, mask.T
+
+    def _pc_fit(self, obs, r2, mask, exp, known: bool, params0=None):
+        """The joint response / vignette / exposure fit and the correction
+        derived from it. `known` pins the log exposures to the telemetry
+        `exp`; `params0` (the previous fit's) warm-starts the fit and adds the
+        prior toward it. Returns (params, rms, inv_response, grad_weight,
+        inv_vignette)."""
+        n = obs.shape[1]
+        if params0 is not None:
+            params = params0._replace(log_exp=params0.log_exp.new_zeros(n))
+        else:
+            params = PC.init_params(n, device=obs.device)
+        params, rms = PC.calibrate(params, obs, torch.arange(n, device=obs.device), r2, mask,
+                                   exp_known=exp if known else None, prev=params0)
+        lut = PC.gamma_lut(params)
+        inv_vig = 1.0 / PC.vignette_map(params, self.height, self.width)
+        return params, rms, invert_response(lut), response_grad_weight(lut), inv_vig
+
+    def _pc_resync_state(self, images, imm_color, imm_u, imm_v, pts_color, pts_u, pts_v,
+                         inv_resp, inv_vig):
+        """Re-correct the photometric state the window holds when the first
+        fit switches the correction on: the keyframe images with their
+        gradients, and the pattern colours of candidates and points, all
+        built from uncorrected frames (exact: the earlier correction was the
+        identity)."""
+        I = photometric_correct(images[..., 0], inv_resp, inv_vig)
+        dx, dy = image_gradients(I)
+        pat = torch.as_tensor(PATTERN, dtype=torch.float32, device=images.device)
+
+        def fix_colors(c, u, v):
+            up = torch.clamp(u[:, None] + pat[None, :, 0], 0.0, self.width - 1.0)
+            vp = torch.clamp(v[:, None] + pat[None, :, 1], 0.0, self.height - 1.0)
+            return photometric_correct(c, inv_resp, None) * bilinear(inv_vig, up, vp)
+
+        return (torch.stack([I, dx, dy], -1), fix_colors(imm_color, imm_u, imm_v),
+                fix_colors(pts_color, pts_u, pts_v))
+
+    def _pc_resync_template(self, tpl: trk_ops.Template, inv_resp, inv_vig):
+        """The tracking template's colours re-corrected (the half of the
+        first-fit resync that the tracking thread owns)."""
+        colors = []
+        for lvl, col in enumerate(tpl.color):
+            f = float(1 << lvl)
+            u0 = torch.clamp(tpl.u[lvl] * f, 0.0, self.width - 1.0)
+            v0 = torch.clamp(tpl.v[lvl] * f, 0.0, self.height - 1.0)
+            colors.append(photometric_correct(col, inv_resp, None) * bilinear(inv_vig, u0, v0))
+        return tpl._replace(color=colors)
+
+    def _photo_calib_step(self):
+        """One online refit on the tracking thread: warp the template into
+        the ring frames (relative poses and the known-exposure test from the
+        shells, on the host), sample their raw intensities and fit on the
+        device without a host sync. The first fit switches the correction on
+        and re-corrects the template (and a staged one) here and the window
+        on the mapping thread; later fits are blended into it."""
+        if self.template is None:
+            return
+        with self._shell_lock:
+            ref_c2w = self.shells[self.ref_shell_id].cam_to_world.copy()
+            rels = np.stack([np.linalg.inv(self.shells[sid].cam_to_world) @ ref_c2w
+                             for sid, _ in self._pc_ring])
+            exps = np.asarray([self.shells[sid].exposure or 1.0 for sid, _ in self._pc_ring],
+                              np.float32)
+        # all-ones exposures mean "unknown" (the dataset convention when no
+        # exposure file exists); telemetry pins the fit's gauge
+        known = bool(np.any(np.abs(exps - 1.0) > 1e-9))
+        tpl = self.template
+        obs, r2, mask = self._pc_sample(
+            tpl.u[0], tpl.v[0], tpl.idepth[0], tpl.valid[0], self.calib.value[:4],
+            self._f32(rels[:, :3, :3]), self._f32(rels[:, :3, 3]),
+            torch.stack([r for _, r in self._pc_ring]))
+        params, self._pc_rms, inv_resp, grad_w, inv_vig = self._pc_fit(
+            obs, r2, mask, self._f32(exps), known, self._pc_params)
+        self._pc_params = params
+        self.n_photo_fits += 1
+        if self._pc_luts is None:
+            self._pc_luts = (inv_resp, inv_vig, grad_w)
+            self.template = self._pc_resync_template(self.template, inv_resp, inv_vig)
+            # a template staged for publication was built uncorrected too
+            with self._ref_lock:
+                if self._pending_ref is not None:
+                    tpl_, *rest = self._pending_ref
+                    self._pending_ref = (self._pc_resync_template(tpl_, inv_resp, inv_vig),
+                                         *rest)
+            self._pc_window_resync = True
+        else:
+            # later fits blend into the applied correction: an abrupt change
+            # would de-sync new frames from every keyframe image in the window
+            a = self._pc_blend
+            self._pc_luts = tuple((1 - a) * old + a * new for old, new in
+                                  zip(self._pc_luts, (inv_resp, inv_vig, grad_w)))
+
+    # ------------------------------------------------------ metrics stream
+    def _emit_metrics(self, **fields):
+        """One JSONL record on the metrics stream (no-op without metrics_path)."""
+        if self._metrics_f is None:
+            return
+        line = json.dumps(fields) + "\n"
+        with self._metrics_lock:
+            if self._metrics_f is not None:
+                self._metrics_f.write(line)
+                self._metrics_f.flush()
+
+    _MAP_MAX_PTS = 1024   # decimation cap per map record
+
+    def _emit_map_record(self, b):
+        """One "map" record per keyframe: the window's point cloud (world
+        space, filtered, decimated to _MAP_MAX_PTS) and the window keyframes'
+        poses, the live 3D view's feed (GUI::UploadKeyFrame,
+        Include/Display.h:126-141). Every record carries the clouds of all
+        window keyframes, so BA updates refresh what was drawn."""
+        xyz, ok, inten = (x.cpu().numpy() for x in map_cloud(
+            self.window.frames, self.window.points, self.calib.value))   # host sync
+        idx = np.flatnonzero(ok)
+        if len(idx) > self._MAP_MAX_PTS:
+            idx = idx[:: len(idx) // self._MAP_MAX_PTS + 1]
+        pts = np.concatenate([xyz[idx], np.clip(inten[idx], 0, 255)[:, None]], axis=1)
+        kfs = [{"kf": int(b.kf_id[s]),
+                "R": [round(float(x), 5) for x in np.asarray(b.Rwc[s]).ravel()],
+                "t": [round(float(x), 5) for x in np.asarray(b.twc[s])]}
+               for s in range(self.cfg.max_frames) if b.valid[s]]
+        self._emit_metrics(t="map", kf_id=int(np.max(b.kf_id)),
+                           pts=[[round(float(c), 4) for c in p] for p in pts], kfs=kfs)
 
     # ------------------------------------------------------ mapping thread
     def _mapping_loop(self):
@@ -641,20 +878,26 @@ class SLAMSystem:
 
     def close(self):
         """Stop and join the mapping thread and the loop-closure worker
-        (after finish()). Raises an exception of either that was not raised
-        yet."""
-        if self._map_thread is not None:
-            with self._qcond:
-                self._map_stop = True
-                self._qcond.notify_all()
-            self._join(self._map_thread, "mapping thread")
-            self._map_thread = None
-        if self._lc_thread is not None:
-            with self._lc_cond:
-                self._lc_stop = True
-                self._lc_cond.notify_all()
-            self._join(self._lc_thread, "loop-closure worker")
-            self._lc_thread = None
+        (after finish()), then flush and close the metrics stream. Raises an
+        exception of either thread that was not raised yet."""
+        try:
+            if self._map_thread is not None:
+                with self._qcond:
+                    self._map_stop = True
+                    self._qcond.notify_all()
+                self._join(self._map_thread, "mapping thread")
+                self._map_thread = None
+            if self._lc_thread is not None:
+                with self._lc_cond:
+                    self._lc_stop = True
+                    self._lc_cond.notify_all()
+                self._join(self._lc_thread, "loop-closure worker")
+                self._lc_thread = None
+        finally:
+            with self._metrics_lock:
+                if self._metrics_f is not None:
+                    self._metrics_f.close()
+                    self._metrics_f = None
         self._raise_thread_excs()
 
     @staticmethod
@@ -976,6 +1219,19 @@ class SLAMSystem:
         if shell.tracking_ref is not None:
             with self._shell_lock:
                 shell.cam_to_world = self.shells[shell.tracking_ref].cam_to_world @ shell.cam_to_ref
+        if self._pc_window_resync:
+            # the first photometric fit landed since the last keyframe: this
+            # thread owns the window here
+            self._pc_window_resync = False
+            inv_resp, inv_vig, _ = self._pc_luts
+            pts, imm = self.window.points, self.imm
+            images, imm_c, pts_c = self._pc_resync_state(
+                self.window.frames.images, imm.color, imm.u, imm.v, pts.color, pts.u, pts.v,
+                inv_resp, inv_vig)
+            self.window = self.window._replace(
+                frames=self.window.frames._replace(images=images),
+                points=pts._replace(color=pts_c))
+            self.imm = imm._replace(color=imm_c)
         flagged = self._flag_frames_for_marg(shell)
         flag_mask = np.zeros(F, bool)
         flag_mask[flagged] = True
@@ -1068,7 +1324,14 @@ class SLAMSystem:
         self._m_nimm_host = np.asarray(b.n_imm_host, np.int64)
         self._m_n_active = int(b.n_active)
         self.ind_obs_history.append(int(b.n_ind))
-        self.kf_full_latencies.append(_time.perf_counter() - t0)
+        latency = _time.perf_counter() - t0
+        self.kf_full_latencies.append(latency)
+        self._emit_metrics(
+            t="kf", id=shell.id, kf_id=shell.kf_id, ba_rmse=rmse, n_active=int(b.n_active),
+            n_ind=int(b.n_ind), n_marg_frames=int(flag_mask.sum()),
+            latency_ms=round(1e3 * latency, 2))
+        if self._metrics_f is not None:
+            self._emit_map_record(b)
         for s in range(F):
             if flag_mask[s]:
                 self.slot_shell[s] = None

@@ -40,11 +40,12 @@ def downsample2(img: torch.Tensor) -> torch.Tensor:
 
 
 def image_gradients(img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Central differences 0.5*(I[x+1]-I[x-1]), zero on the border."""
+    """Central differences 0.5*(I[x+1]-I[x-1]), zero on the border, of an
+    (..., H, W) image or stack of images."""
     dx = torch.zeros_like(img)
     dy = torch.zeros_like(img)
-    dx[:, 1:-1] = 0.5 * (img[:, 2:] - img[:, :-2])
-    dy[1:-1, :] = 0.5 * (img[2:, :] - img[:-2, :])
+    dx[..., 1:-1] = 0.5 * (img[..., 2:] - img[..., :-2])
+    dy[..., 1:-1, :] = 0.5 * (img[..., 2:, :] - img[..., :-2, :])
     return dx, dy
 
 

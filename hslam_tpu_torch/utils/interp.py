@@ -37,6 +37,19 @@ def bilinear(img, x, y):
     return top * (1.0 - dy) + bot * dy
 
 
+def bilinear_stack(imgs, x, y):
+    """Sample each image of a stack imgs (B, H, W) at its own float coords
+    x, y (B, ...): bilinear on every plane, in one gather."""
+    B, H, W = imgs.shape
+    dx, dy, base = _cell(H, W, x, y)
+    base = base + (torch.arange(B, device=imgs.device) * (H * W)).reshape(
+        (B,) + (1,) * (x.dim() - 1))
+    flat = imgs.reshape(-1)
+    top = flat[base] * (1.0 - dx) + flat[base + 1] * dx
+    bot = flat[base + W] * (1.0 - dx) + flat[base + W + 1] * dx
+    return top * (1.0 - dy) + bot * dy
+
+
 def bilinear_with_grad(img, x, y):
     """(value, gx, gy) with gx/gy the bilinear finite differences of the
     2x2 cell (getInterpolatedElement33BiLin semantics)."""

@@ -1,6 +1,7 @@
 """hslam_tpu_torch: Config and constants equal the JAX package's; the port
 imports no jax; unported options are refused, not silently skipped."""
 import dataclasses
+import os
 import pathlib
 import re
 import subprocess
@@ -69,10 +70,8 @@ SLICE = dict(enable_indirect=False, init_direct_refine=False)
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(cfg=SLICE, online_photo_calib=True),
     dict(cfg=SLICE, dist_mesh=object()),
-    dict(cfg=SLICE, metrics_path="metrics.jsonl"),
-], ids=["photo_calib", "dist_mesh", "metrics_stream"])
+], ids=["dist_mesh"])
 def test_system_refuses_unported_options(kwargs):
     from hslam_tpu_torch.models.system import SLAMSystem
     kw = dict(enable_loop_closure=False)
@@ -90,15 +89,24 @@ def test_system_refuses_unported_options(kwargs):
     dict(cfg=SLICE, enable_loop_closure=True),
     dict(cfg={}, enable_loop_closure=True, sequential=False),
     dict(cfg={}, enable_loop_closure=True, vocab_path="online"),
+    dict(cfg=SLICE, online_photo_calib=True),
+    dict(cfg={}, online_photo_calib=True, photo_calib_every=4, sequential=False),
+    dict(cfg=SLICE, metrics_path="metrics.jsonl"),
+    dict(cfg={}, metrics_path="metrics.jsonl", sequential=False, enable_loop_closure=True),
 ], ids=["indirect", "init_refine", "use_fast", "pipelined", "loop_closure",
-        "loop_closure_pipelined", "loop_closure_online_vocabulary"])
-def test_system_accepts_ported_options(kwargs):
+        "loop_closure_pipelined", "loop_closure_online_vocabulary", "photo_calib",
+        "photo_calib_pipelined", "metrics_stream", "metrics_stream_pipelined"])
+def test_system_accepts_ported_options(kwargs, tmp_path):
     """The ported options construct a system, which closes cleanly."""
     from hslam_tpu_torch.models.system import SLAMSystem
     kw = dict(enable_loop_closure=False)
     kw.update(kwargs)
     cfg = tcfg.Config(**kw.pop("cfg"))
+    if "metrics_path" in kw:
+        kw["metrics_path"] = str(tmp_path / kw["metrics_path"])
     slam = SLAMSystem(80.0, 80.0, 63.5, 47.5, 128, 96, cfg, device="cpu", **kw)
+    assert slam.online_photo_calib == kw.get("online_photo_calib", False)
+    assert slam._pc_ring.maxlen == kw.get("photo_calib_every", 8) and slam._pc_luts is None
     if kw["enable_loop_closure"]:
         # the shipped vocabulary unless the caller asks for online training
         online = kw.get("vocab_path") == "online"
@@ -109,6 +117,9 @@ def test_system_accepts_ported_options(kwargs):
         assert slam.loop_closer is None and slam._lc_thread is None
     slam.close()
     assert slam._map_thread is None and slam._lc_thread is None
+    if "metrics_path" in kw:
+        # opened by the constructor, closed by close()
+        assert slam._metrics_f is None and os.path.exists(kw["metrics_path"])
 
 
 def test_default_constructor_arguments_build_loop_closure():

@@ -5,7 +5,7 @@ the same frames (recorded here; a slow test runs the JAX package live and
 checks the record), (b) the pipelined entry with the mapping thread under a 3x
 input skip, (c) the kidnapped camera that only relocalization recovers,
 (d) the options that stay refused, and how the mapping thread reports
-failures, (e) loop closure in the system: the worker thread live in the
+failures, (e) the metrics stream through both entries, (f) loop closure in the system: the worker thread live in the
 pipelined run, the online vocabulary bootstrap, the connectivity map
 against the JAX package's, and a large gauge correction of the window.
 
@@ -208,9 +208,7 @@ def test_kidnap_triggers_relocalization(indirect):
         assert np.isfinite(err_full) and err_full < 0.15, err_full
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(online_photo_calib=True), dict(dist_mesh=object()), dict(metrics_path="m.jsonl"),
-], ids=["photo_calib", "dist_mesh", "metrics_stream"])
+@pytest.mark.parametrize("kwargs", [dict(dist_mesh=object())], ids=["dist_mesh"])
 def test_hybrid_config_still_refuses(kwargs):
     kw = dict(enable_loop_closure=False, sequential=False)
     kw.update(kwargs)
@@ -544,13 +542,13 @@ def test_large_loop_correction_keeps_ba_stable():
 
 @pytest.mark.parametrize("fn", ["from_numpy", "make_calib", "empty_window", "empty_imm",
                                 "empty_feats", "init_trace_state", "load_vocabulary",
-                                "train_vocabulary", "make_graph"])
+                                "train_vocabulary", "make_graph", "init_params"])
 def test_constructors_default_to_the_card(fn):
     """Every public constructor of the port makes its tensors on the card
     unless the caller names a device (the tests name the CPU)."""
     import inspect
     from hslam_tpu_torch import convert
-    from hslam_tpu_torch.models import calib, kf_step, pose_graph, window
+    from hslam_tpu_torch.models import calib, kf_step, photo_calib, pose_graph, window
     from hslam_tpu_torch.models.system import default_vocab_path
     from hslam_tpu_torch.ops import bow, epipolar, features
     cfg = Config(**CFG_KW)
@@ -568,6 +566,7 @@ def test_constructors_default_to_the_card(fn):
         "make_graph": (pose_graph.make_graph,
                        (np.ones(1), eye, np.zeros((1, 3)), np.ones(1, bool), np.zeros(1, int),
                         np.zeros(1, int), (np.ones(1), eye, np.zeros((1, 3))))),
+        "init_params": (photo_calib.init_params, (4,)),
     }
     f, args = calls[fn]
     assert inspect.signature(f).parameters["device"].default == "cuda"
@@ -583,3 +582,73 @@ def test_constructors_default_to_the_card(fn):
         with pytest.raises((RuntimeError, AssertionError)):
             f(*args)
     assert device_of(f(*args, device="cpu")) == "cpu"
+
+
+# ------------------------------------------------------------ metrics stream
+@pytest.mark.parametrize("sequential", [True, False], ids=["sequential", "pipelined"])
+def test_metrics_stream(sequential, tmp_path):
+    """tests/test_system.py::test_metrics_stream on the port: a JSONL stream
+    with one "frame" record per tracked frame of process_frame (none from
+    the pipelined entry, as in the JAX package), one "kf" and one "map"
+    record (world point cloud and window keyframe poses) per finalized
+    keyframe; close() flushes and closes the file."""
+    import json
+    frames, _ = make_sequence(Scene(H, W, FX, n_blobs=16), 12, lambda i: sweep_xi(i / 10.0))
+    path = str(tmp_path / "metrics.jsonl")
+    slam = _port(sequential=sequential, metrics_path=path)
+    tracked = []
+    try:
+        for i, f in enumerate(frames):
+            if sequential:
+                was_init = slam.initialized
+                slam.process_frame(f, i / 10.0)
+                if was_init:
+                    tracked.append(i)
+            else:
+                slam.process_frame_pipelined(f, i / 10.0)
+        slam.flush_pipeline()
+        slam.finish()
+    finally:
+        slam.close()
+    assert slam._metrics_f is None
+    recs = [json.loads(ln) for ln in open(path)]
+    frames_r = [r for r in recs if r["t"] == "frame"]
+    kfs = [r for r in recs if r["t"] == "kf"]
+    maps = [r for r in recs if r["t"] == "map"]
+    assert [r["id"] for r in frames_r] == tracked
+    if sequential:
+        assert len(frames_r) >= 5
+        assert {"id", "ts", "rmse", "pose_valid", "kf", "reloc", "p"} <= set(frames_r[0])
+        assert all(np.isfinite(r["rmse"]) for r in frames_r)
+    # every keyframe but the first (made in the bootstrap) was finalized
+    assert len(kfs) == slam.next_kf_id - 1 >= 2
+    assert [r["kf_id"] for r in kfs] == list(range(1, slam.next_kf_id))
+    assert {"kf_id", "ba_rmse", "n_active", "n_ind", "n_marg_frames", "latency_ms"} <= set(kfs[0])
+    assert len(maps) == len(kfs)
+    m = maps[-1]
+    assert {"kf_id", "pts", "kfs"} <= set(m) and m["kf_id"] == kfs[-1]["kf_id"]
+    pts = np.asarray(m["pts"])
+    assert len(pts) > 10 and pts.shape[1] == 4 and np.isfinite(pts).all()
+    assert len(pts) <= SLAMSystem._MAP_MAX_PTS
+    assert len(m["kfs"]) >= 2 and len(m["kfs"][0]["R"]) == 9
+    # the cloud lies in front of the first camera, around the scene depth 2
+    assert 0.5 < float(np.median(pts[:, 2])) < 8.0
+
+
+def test_map_cloud_matches_jax():
+    """The map record's point cloud (world positions, the noise filter) from
+    one window state in both packages."""
+    import jax
+    from hslam_tpu_torch.convert import to_numpy
+    from hslam_tpu_torch.models.system import map_cloud
+    frames, _ = make_sequence(Scene(H, W, FX, n_blobs=16), 9, lambda i: sweep_xi(i / 10.0))
+    ts = _run_sequential(_port(), frames)
+    js = JSLAM(FX, FX, CX, CY, W, H, JConfig(**CFG_KW), enable_loop_closure=False)
+    wnd = jax.tree_util.tree_map(jnp.asarray, to_numpy(ts.window))
+    a = [np.asarray(x) for x in js._map_cloud(wnd.frames, wnd.points,
+                                              jnp.asarray(ts.calib.value.numpy()))]
+    b = [x.numpy() for x in map_cloud(ts.window.frames, ts.window.points, ts.calib.value)]
+    np.testing.assert_array_equal(b[1], a[1])
+    assert a[1].sum() > 10
+    np.testing.assert_allclose(b[0][a[1]], a[0][a[1]], atol=1e-4)
+    np.testing.assert_array_equal(b[2], a[2])

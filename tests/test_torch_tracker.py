@@ -268,3 +268,18 @@ def test_track_step_matches(scene):
     np.testing.assert_allclose(to.residuals.numpy(), np.asarray(jo.residuals), rtol=1e-3)
     # and the rendered motion is recovered (c2w of the worldToCam (R, t))
     np.testing.assert_allclose(to.t.numpy(), t, atol=2e-3)
+
+
+@pytest.mark.parametrize("n_bins", [1, 7, 500])
+def test_template_bin_sums_fixed_order(n_bins):
+    """The template's per-pixel sums (build_template) are the exactly
+    rounded sums whatever the order of the entries, so the card gives the
+    same bits on every run (a float index_add_ there does not)."""
+    g = torch.Generator().manual_seed(n_bins)
+    idx = torch.randint(0, n_bins, (300,), generator=g)
+    vals = torch.randn(300, 2, generator=g) * 100.0
+    out = ttrk._bin_sums(idx, vals, n_bins)
+    ref = torch.zeros(n_bins, 2, dtype=torch.float64).index_add_(0, idx, vals.double()).float()
+    assert torch.equal(out, ref)
+    perm = torch.randperm(300, generator=g)
+    assert torch.equal(ttrk._bin_sums(idx[perm], vals[perm], n_bins), out)
