@@ -50,7 +50,15 @@ Phases (each failure is fatal; nothing falls back to the CPU):
      the fit timed, and one fit redone on the CPU;
  13. checkpoint and the metrics stream: the sequential hybrid system over
      the 60-frame arc writing its JSONL stream, saved at frame 40, restored
-     bit for bit into a fresh system on the card, both run on to frame 60.
+     bit for bit into a fresh system on the card, both run on to frame 60;
+ 14. distributed: the point-sharded BA and point marginalization, the
+     edge-sharded PCG (10,000 nodes) and the keyframe-block-sharded global BA
+     (256 keyframes) on a world of one over NCCL, bit for bit against the
+     unsharded calls, and on two ranks over Gloo on the one card, against
+     them within tests/test_dist.py's tolerances; then the default hybrid
+     system with dist_mesh on both ranks over the arc (the same bits on both,
+     ATE, keyframes against the single-process run) and dryrun_multichip(2).
+     Each rank is a spawned process; no scaling is claimed (one card).
 
 Prints a JSON kernel table on the line before the last, and as the last
 line {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -898,14 +906,14 @@ def phase_loop_modules(card):
     sol, ms, st, mib = runs[0]
     c1 = _chi2(pg, sol)
     finite = all(bool(torch.isfinite(x).all()) for x in sol)
-    repeat = _sim3_gap(runs[0][0], runs[1][0])
+    same = all(torch.equal(x, y) for x, y in zip(runs[0][0], runs[1][0]))
     log(f"[loop modules] {card} | 10,000 nodes, PCG 5 GN x <=1000 CG on the card: chi2 "
         f"{c0:.5g} -> {c1:.5g} (ratio {c1 / c0:.3g}, bar 1e-3), finite={finite}, "
         f"{ms / 1e3:.2f} s ({runs[1][1] / 1e3:.2f} s again), {st['cg_iterations']} CG "
         f"iterations, {st['host_syncs']} host syncs ({ms / max(st['host_syncs'], 1):.3f} ms "
         f"per CG iteration with its sync), max_memory_allocated {mib:.1f} MiB (bar 1024); "
-        f"two runs differ by {repeat:.3g} in the Sim3 log (float atomics in index_add_)")
-    if not (c1 < 1e-3 * c0 and finite and mib < 1024.0):
+        f"two runs give the same bits (fixed-order sums): {same}")
+    if not (c1 < 1e-3 * c0 and finite and mib < 1024.0 and same):
         raise AssertionError("the 10,000-node relaxation failed its bars")
 
 
@@ -1339,6 +1347,360 @@ def phase_checkpoint(card):
     return launches
 
 
+GBA_W, GBA_H, GBA_F = 128, 96, 80.0
+GBA_K = np.array([[GBA_F, 0, GBA_W / 2 - 0.5], [0, GBA_F, GBA_H / 2 - 0.5], [0, 0, 1.0]])
+
+
+def _gba_problem(N=256, ppk=4, radius=3, pose_noise=0.015, rho_noise=0.05, seed=6):
+    """tests/test_global_ba.py's _make_problem in numpy (the 256-keyframe
+    case of its test_256kf_sharded_long_trajectory): a sideways arc over the
+    plane z = 2, landmarks lifted from it, poses but the first and inverse
+    depths perturbed. Returns the port's GlobalBA on the CPU."""
+    from hslam_tpu_torch.io.synthetic import se3_exp_np
+    from hslam_tpu_torch.parallel import global_ba as G
+    rng = np.random.default_rng(seed)
+    Rs, ts = [], []
+    for i in range(N):
+        a = 0.06 * i
+        R, t = se3_exp_np(np.array([0.9 * np.sin(a), 0.5 * (1 - np.cos(a)), 0.15 * np.sin(0.7 * a),
+                                    0.03 * np.sin(0.9 * a), 0.04 * np.sin(0.6 * a),
+                                    0.02 * np.sin(0.5 * a)]))
+        Rs.append(R.T)
+        ts.append(-R.T @ t)
+    fx, cx, cy = GBA_K[0, 0], GBA_K[0, 2], GBA_K[1, 2]
+
+    def depth_fn(u, v, i):
+        C = -Rs[i].T @ ts[i]
+        rw = Rs[i].T @ np.array([(u - cx) / fx, (v - cy) / fx, 1.0])
+        return (2.0 - C[2]) / max(rw[2], 1e-6)
+
+    prob = G.build_problem_from_trajectory(Rs, ts, GBA_K, ppk, radius, GBA_W, GBA_H, rng,
+                                           depth_fn, pix_noise=0.1, device="cpu")
+    R_n, t_n = [prob.R[0].double().numpy()], [prob.t[0].double().numpy()]
+    for i in range(1, N):
+        dR, dt = se3_exp_np(rng.normal(0, pose_noise, 6) * np.array([1, 1, 1, .5, .5, .5]))
+        R_n.append(dR @ prob.R[i].double().numpy())
+        t_n.append(dR @ prob.t[i].double().numpy() + dt)
+    rho = prob.rho.double().numpy() * np.exp(rng.normal(0, rho_noise, prob.rho.shape[0]))
+    return prob._replace(R=torch.as_tensor(np.stack(R_n), dtype=torch.float32),
+                         t=torch.as_tensor(np.stack(t_n), dtype=torch.float32),
+                         rho=torch.as_tensor(rho, dtype=torch.float32))
+
+
+def _to(tree, dev):
+    """Tensors of a tree of (named) tuples moved to `dev`."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if not isinstance(tree, tuple):
+        return tree
+    vals = [_to(x, dev) for x in tree]
+    return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [x for y in tree for x in _leaves(y)] if isinstance(tree, tuple) else []
+
+
+def _ba_collectives(mesh, wnd, calib, cfg):
+    """(collectives, bytes) of one sharded optimize outside its GN loop, and
+    of one GN iteration: the counters around calls of 1 and 2 iterations,
+    on the window with its frames moved by 1e-3 in every pose direction so
+    that the first iteration does not converge."""
+    from hslam_tpu_torch.parallel.dist_ba import sharded_ba_optimize
+    st = wnd.frames.state.clone()
+    st[:, :6] += 1e-3
+    moved = wnd._replace(frames=wnd.frames._replace(state=st))
+    out = []
+    for n in (1, 2):
+        c, b = mesh.n_collectives, mesh.n_bytes
+        sharded_ba_optimize(mesh, moved, calib, cfg, n)
+        out.append((mesh.n_collectives - c, mesh.n_bytes - b))
+    per_iter = (out[1][0] - out[0][0], out[1][1] - out[0][1])
+    return (out[0][0] - per_iter[0], out[0][1] - per_iter[1]), per_iter
+
+
+def _allreduce_ms(mesh, numel, reps=50):
+    """ms of one float32 all_reduce of `numel` values followed by a host
+    sync, as a CG iteration issues it (psum, then its stopping test)."""
+    from hslam_tpu_torch.parallel.distributed import psum
+    x = torch.ones(numel, device="cuda")
+    float(psum(x, mesh)[0])
+    return _timed(lambda: [float(psum(x, mesh)[0]) for _ in range(reps)])[1] / reps
+
+
+def _median_ms(fn, reps=3):
+    fn()
+    return float(np.median([_timed(fn)[1] for _ in range(reps)]))
+
+
+def _p14_world_of_one(mesh, wnd, calib, cfg, marg, pg_args):
+    """(a), on one rank over NCCL: every sharded call against its unsharded
+    call on the same inputs, torch.equal leaf by leaf, and their times."""
+    from hslam_tpu_torch.models import optimizer as O
+    from hslam_tpu_torch.models import pose_graph as PG
+    from hslam_tpu_torch.parallel.dist_ba import sharded_ba_optimize, sharded_marginalize_points
+    from hslam_tpu_torch.parallel.dist_pose_graph import sharded_optimize_pose_graph_pcg
+    torch.cuda.set_device(0)
+    wnd, calib, (tm, td) = _to(wnd, "cuda"), _to(calib, "cuda"), _to(marg, "cuda")
+    it = cfg.max_opt_iterations
+    fixed, per_iter = _ba_collectives(mesh, wnd, calib, cfg)
+    a = sharded_ba_optimize(mesh, wnd, calib, cfg, it)
+    b = O.ba_optimize(wnd, calib, cfg, it)
+    ma = sharded_marginalize_points(mesh, wnd, calib, tm, td, cfg)
+    mb = O.marginalize_points(wnd, calib, tm, td, cfg)
+    pg = PG.make_graph(*pg_args, device="cuda")
+    edges = mesh.split("edges")
+    sharded_optimize_pose_graph_pcg(edges, pg, n_iters=1, cg_iters=2)        # warm-up
+    PG.optimize_pose_graph_pcg(pg, n_iters=1, cg_iters=2)
+    pa, pcg_ms = _timed(lambda: sharded_optimize_pose_graph_pcg(edges, pg, n_iters=5, cg_iters=1000))
+    pb, pcg_plain_ms = _timed(lambda: PG.optimize_pose_graph_pcg(pg, n_iters=5, cg_iters=1000))
+    eq = {k: all(torch.equal(x, y) for x, y in zip(_leaves(u), _leaves(v)))
+          for k, (u, v) in dict(ba=(a, b), marginalize=(ma, mb), pcg=(pa, pb)).items()}
+    return dict(equal=eq, fixed=fixed, per_iter=per_iter,
+                allreduce_ms={n: _allreduce_ms(edges, n) for n in (9387, 70000)},
+                ba_ms=_median_ms(lambda: sharded_ba_optimize(mesh, wnd, calib, cfg, it)),
+                ba_plain_ms=_median_ms(lambda: O.ba_optimize(wnd, calib, cfg, it)),
+                pcg_ms=pcg_ms, pcg_plain_ms=pcg_plain_ms)
+
+
+def _p14_two_ranks(mesh, wnd, cond, calib, cfg, marg, pg_args, gba, frames):
+    """(b), on each of two ranks over Gloo, both on the one card: the
+    sharded calls, then the system over the arc with dist_mesh."""
+    from hslam_tpu_torch.models import pose_graph as PG
+    from hslam_tpu_torch.models.system import SLAMSystem
+    from hslam_tpu_torch.ops import pyramid as P
+    from hslam_tpu_torch.parallel.dist_ba import sharded_ba_optimize, sharded_marginalize_points
+    from hslam_tpu_torch.parallel.dist_pose_graph import sharded_optimize_pose_graph_pcg
+    from hslam_tpu_torch.parallel.global_ba import sharded_global_ba
+    torch.cuda.set_device(0)
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))   # two ranks on one host
+    wnd, cond, calib = _to(wnd, "cuda"), _to(cond, "cuda"), _to(calib, "cuda")
+    tm, td = _to(marg, "cuda")
+    it = cfg.max_opt_iterations
+    fixed, per_iter = _ba_collectives(mesh, wnd, calib, cfg)
+    r = sharded_ba_optimize(mesh, cond, calib, cfg, it)
+    ba_ms = _median_ms(lambda: sharded_ba_optimize(mesh, cond, calib, cfg, it))
+    raw = sharded_ba_optimize(mesh, wnd, calib, cfg, it)
+    m = sharded_marginalize_points(mesh, wnd, calib, tm, td, cfg)
+    pg = PG.make_graph(*pg_args, device="cuda")
+    edges = mesh.split("edges")
+    sharded_optimize_pose_graph_pcg(edges, pg, n_iters=1, cg_iters=2)        # warm-up
+    pcg, pcg_ms = _timed(lambda: sharded_optimize_pose_graph_pcg(
+        edges, pg, n_iters=5, cg_iters=1000))
+    kfb, gba = mesh.split("kfblocks"), _to(gba, "cuda")
+    sharded_global_ba(kfb, gba, GBA_K, n_iters=1, cg_iters=2)                  # warm-up
+    (gp, chis), gba_ms = _timed(lambda: sharded_global_ba(kfb, gba, GBA_K))
+    np_ = lambda xs: [x.cpu().numpy() for x in xs]  # noqa: E731
+    out = dict(
+        fixed=fixed, per_iter=per_iter, ba_ms=ba_ms, pcg_ms=pcg_ms, gba_ms=gba_ms,
+        allreduce_ms={n: _allreduce_ms(edges, n) for n in (9387, 70000)},
+        ba=np_((r.rmse, r.window.frames.state, r.calib.value, r.window.points.idepth,
+                r.window.points.res_state, r.window.frames.energy_th)),
+        ba_raw=np_((raw.rmse, raw.window.frames.state, raw.window.points.idepth)),
+        marginalize=np_((m.HM, m.bM, m.points.status)), pcg=np_(pcg),
+        global_ba=np_((chis, gp.t, gp.R, gp.rho)))
+    # the system: the default hybrid configuration through process_frame
+    H, W, FX = 480, 640, 320.0
+    slam = SLAMSystem(FX, FX, W / 2 - 0.5, H / 2 - 0.5, W, H, _hybrid_cfg(), dist_mesh=mesh)
+    torch.cuda.synchronize()
+    P.kernel_launches = 0
+    P.plain_calls = 0
+    c0, b0 = mesh.n_collectives, mesh.n_bytes
+    kf_ms = []
+    t_all = time.perf_counter()
+    for i, f in enumerate(frames):
+        shell, ms = _timed(lambda: slam.process_frame(f, 0.05 * i))
+        if shell.is_kf:
+            kf_ms.append(ms)
+    wall = time.perf_counter() - t_all
+    out["system"] = dict(
+        launches=P.kernel_launches, plain=P.plain_calls, retries=slam.n_track_retries,
+        keyframes=slam.next_kf_id, lost=slam.is_lost, wall=wall, kf_ms=kf_ms,
+        collectives=mesh.n_collectives - c0, bytes=mesh.n_bytes - b0,
+        valid=[s.pose_valid for s in slam.shells],
+        poses=np.stack([s.cam_to_world for s in slam.shells]))
+    slam.close()
+    return out
+
+
+def phase_distributed(card):
+    """The point-sharded BA and marginalization, the edge-sharded PCG and the
+    sharded global BA on the card, and SLAMSystem(dist_mesh=...): (a) a
+    world of one over NCCL, bit for bit against the unsharded calls; (b) two
+    ranks over Gloo on the one card, against the unsharded calls and the
+    single-process system run; (c) dryrun_multichip(2). Each rank is a
+    spawned process; a rank that fails or hangs fails the phase."""
+    from hslam_tpu_torch.config import CPARS
+    from hslam_tpu_torch.io.synthetic import Scene, make_sequence
+    from hslam_tpu_torch.io.trajectory import ate_rmse
+    from hslam_tpu_torch.models import optimizer as O
+    from hslam_tpu_torch.models import pose_graph as PG
+    from hslam_tpu_torch.models.system import SLAMSystem
+    from hslam_tpu_torch.ops import pyramid as P
+    from hslam_tpu_torch.parallel.distributed import run_ranks
+    from hslam_tpu_torch.parallel.dryrun import dryrun_multichip
+    from hslam_tpu_torch.parallel.global_ba import global_ba, partition_problem
+    t_phase = time.perf_counter()
+    H, W, FX = 480, 640, 320.0
+    cfg = _hybrid_cfg()
+    frames, centres = make_sequence(Scene(H, W, FX), SEQ_FRAMES)
+    # the single-process run: the bars of (b) and the window of the calls
+    slam = SLAMSystem(FX, FX, W / 2 - 0.5, H / 2 - 0.5, W, H, cfg)
+    torch.cuda.synchronize()
+    P.kernel_launches = 0
+    P.plain_calls = 0
+    for i, f in enumerate(frames):
+        slam.process_frame(f, 0.05 * i)
+    torch.cuda.synchronize()
+    launches, plain, builds = P.kernel_launches, P.plain_calls, SEQ_FRAMES + slam.n_track_retries
+    slam.close()
+    valid1 = [s.id for s in slam.shells if s.pose_valid]
+    ate1 = ate_rmse(centres[valid1], np.array([slam.shells[i].cam_to_world[:3, 3] for i in valid1]))
+    kfs1 = slam.next_kf_id
+    wnd, calib = slam.window, slam.calib
+    P_ = cfg.max_points
+    n_act = int((wnd.points.status == 1).sum())
+    tm = (torch.arange(P_, device="cuda") % 5 == 0) & (wnd.points.status == 1)
+    td = (torch.arange(P_, device="cuda") % 7 == 3) & ~tm
+    # tests/test_dist.py's conditioning for the two-rank optimize: frame
+    # priors of 1e8, so the comparison reads the reductions and not f32
+    # noise amplified along the gauge
+    cond = wnd._replace(frames=wnd.frames._replace(prior=torch.full_like(wnd.frames.prior, 1e8)))
+    it = cfg.max_opt_iterations
+    rs = O.ba_optimize(cond, calib, cfg, it)
+    ba_plain_ms = _median_ms(lambda: O.ba_optimize(cond, calib, cfg, it))
+    raw = O.ba_optimize(wnd, calib, cfg, it)
+    ms = O.marginalize_points(wnd, calib, tm, td, cfg)
+    # the control of (b)'s marginalization check: rank 1's block of flagged
+    # points dropped, as a reduction that lost a rank would give
+    tm0 = tm.clone()
+    tm0[P_ // 2:] = False
+    ctl = O.marginalize_points(wnd, calib, tm0, td, cfg)
+    pg_args = _circle_graph(10_000, scale_drift=1.00005, noise=0.002)
+    pg = PG.make_graph(*pg_args, device="cuda")
+    PG.optimize_pose_graph_pcg(pg, n_iters=1, cg_iters=2)                    # warm-up
+    pcg1, pcg_plain_ms = _timed(lambda: PG.optimize_pose_graph_pcg(pg, n_iters=5, cg_iters=1000))
+    gba = partition_problem(_gba_problem(), 2)
+    global_ba(_to(gba, "cuda"), GBA_K, n_iters=1, cg_iters=2)                 # warm-up
+    (gp1, chis1), gba_plain_ms = _timed(lambda: global_ba(_to(gba, "cuda"), GBA_K))
+    log(f"[distributed] {card} | single process, sequential default hybrid system: "
+        f"keyframes {kfs1}, valid {len(valid1)}/{SEQ_FRAMES}, ATE {ate1:.6f}; window "
+        f"{n_act} active points of {P_}, {int(tm.sum())} flagged to marginalize")
+
+    cpu = lambda t: _to(t, "cpu")  # noqa: E731
+    marg = (tm.cpu(), td.cpu())
+    # (a) a world of one over NCCL
+    a, = run_ranks(_p14_world_of_one, 1, args=(cpu(wnd), cpu(calib), cfg, marg, pg_args),
+                   backend="nccl", timeout=300)
+    log(f"[distributed] {card} | (a) 1 rank NCCL: sharded == unsharded (torch.equal) "
+        f"{a['equal']}; BA per keyframe ({it} GN iterations at most) {a['ba_ms']:.2f} ms "
+        f"sharded vs {a['ba_plain_ms']:.2f} unsharded; PCG 10,000 nodes {a['pcg_ms']:.1f} ms "
+        f"sharded vs {a['pcg_plain_ms']:.1f} unsharded")
+    log(f"[distributed] collectives (count, bytes) per GN iteration {a['per_iter']}, outside "
+        f"the loop {a['fixed']}, per optimize call; ms per all_reduce with a host sync, by "
+        f"float32 values (the BA's camera system, the PCG's node vector): {a['allreduce_ms']}")
+    failures = [f"(a) {k} differs from unsharded" for k, ok in a["equal"].items() if not ok]
+
+    # (b) two ranks over Gloo, both on the card
+    r0, r1 = run_ranks(_p14_two_ranks, 2, args=(cpu(wnd), cpu(cond), cpu(calib), cfg, marg,
+                                                pg_args, gba, frames),
+                       backend="gloo", timeout=600)
+    same = all(np.array_equal(x, y) for k in ("ba", "ba_raw", "marginalize", "pcg", "global_ba")
+               for x, y in zip(r0[k], r1[k]))
+    s0, s1 = r0["system"], r1["system"]
+    same_traj = np.array_equal(s0["poses"], s1["poses"]) and s0["valid"] == s1["valid"]
+    errs = {}
+
+    def held(name, got, want, rtol=0.0, atol=0.0):
+        want = want.detach().cpu().numpy() if isinstance(want, torch.Tensor) else want
+        gap = float(np.max(np.abs(np.asarray(got, np.float64) - want)))
+        errs[name] = gap
+        if not np.allclose(got, want, rtol=rtol, atol=atol):
+            failures.append(f"(b) {name}: max |difference| {gap:.3g} beyond rtol {rtol} atol {atol}")
+
+    rmse, state, cal, idepth, res_state, eth = r0["ba"]
+    held("ba rmse", rmse, rs.rmse, rtol=1e-4)
+    held("ba state", state, rs.window.frames.state, rtol=1e-4, atol=1e-5)
+    held("ba calib", cal, rs.calib.value, rtol=1e-5)
+    held("ba idepth", idepth, rs.window.points.idepth, rtol=1e-3, atol=1e-4)
+    held("ba res_state", res_state, rs.window.points.res_state)
+    held("ba energy_th", eth, rs.window.frames.energy_th, rtol=1e-4)
+    for name, x, y in zip(("rmse", "state", "idepth"), r0["ba_raw"],
+                          (raw.rmse, raw.window.frames.state, raw.window.points.idepth)):
+        errs[f"unconditioned ba {name}"] = float(np.max(np.abs(x - y.cpu().numpy())))
+    # HM and bM hold f32 differences of sums near 1e10 (H_top - H_sc): the
+    # reduction order moves an entry by about one f32 ulp of the matrix's
+    # largest, so rtol 1e-4 and atol 1e-2 take a floor of 16 such ulps
+    HM1, bM1 = ms.HM.cpu().numpy(), ms.bM.cpu().numpy()
+    f32_atol = lambda ref: 1e-2 + 16 * np.finfo(np.float32).eps * np.abs(ref).max()  # noqa: E731
+    held("marginalize HM", r0["marginalize"][0], HM1, rtol=1e-4, atol=f32_atol(HM1))
+    held("marginalize bM", r0["marginalize"][1], bM1, rtol=1e-4, atol=f32_atol(bM1))
+    # the block of the calibration and the affine brightness: small entries
+    small = np.r_[np.arange(CPARS),
+                  CPARS + np.flatnonzero(np.arange(8 * cfg.max_frames) % 8 >= 6)]
+    small = np.ix_(small, small)
+    gap_small = float(np.abs(np.asarray(r0["marginalize"][0]) - HM1)[small].max())
+    HMc = ctl.HM.cpu().numpy()
+    caught = not np.allclose(HMc, HM1, rtol=1e-4, atol=f32_atol(HM1))
+    log(f"[distributed] (b) marginalize: max |HM| {np.abs(HM1).max():.4g}, max |bM| "
+        f"{np.abs(bM1).max():.4g}; HM limit 1e-4 |HM_ij| + {f32_atol(HM1):.4g}, bM limit "
+        f"1e-4 |bM_i| + {f32_atol(bM1):.4g}; two ranks' HM gap in the calibration and affine "
+        f"block {gap_small:.3g}; control (rank 1's block dropped) HM gap "
+        f"{float(np.abs(HMc - HM1).max()):.4g}, in that block "
+        f"{float(np.abs(HMc - HM1)[small].max()):.4g}, caught by the check: {caught}")
+    if not caught:
+        failures.append("(b) the marginalization check passes a dropped rank's block")
+    held("marginalize status", r0["marginalize"][2], ms.points.status)
+    held("pcg s", r0["pcg"][0], pcg1[0], rtol=2e-3, atol=2e-4)
+    held("pcg t", r0["pcg"][2], pcg1[2], atol=5e-3)
+    chi_1 = _chi2(pg, pcg1)
+    chi_2 = _chi2(pg, [torch.as_tensor(x, device="cuda") for x in r0["pcg"]])
+    if not chi_2 <= 1.05 * chi_1 + 1e-6:
+        failures.append(f"(b) pcg chi2 {chi_2} above 1.05 x {chi_1}")
+    held("global_ba chi2", r0["global_ba"][0], chis1, rtol=2e-3)
+    held("global_ba t", r0["global_ba"][1], gp1.t, atol=2e-3)
+    held("global_ba R", r0["global_ba"][2], gp1.R, atol=2e-3)
+    held("global_ba rho", r0["global_ba"][3], gp1.rho, atol=5e-3)
+    valid = [i for i, v in enumerate(s0["valid"]) if v]
+    ate = ate_rmse(centres[valid], s0["poses"][valid, :3, 3])
+    log(f"[distributed] {card} | (b) 2 ranks Gloo on one card: ranks equal bit for bit: calls "
+        f"{same}, trajectories {same_traj}; BA per keyframe {r0['ba_ms']:.2f} / "
+        f"{r1['ba_ms']:.2f} ms (ranks 0 / 1) vs {ba_plain_ms:.2f} unsharded; PCG 10,000 nodes "
+        f"{r0['pcg_ms']:.1f} / {r1['pcg_ms']:.1f} ms vs {pcg_plain_ms:.1f}; global BA 256 "
+        f"keyframes {r0['gba_ms']:.1f} ms vs {gba_plain_ms:.1f}; collectives (count, bytes) "
+        f"per GN iteration {r0['per_iter']}, outside the loop {r0['fixed']}; ms per "
+        f"all_reduce with a host sync {r0['allreduce_ms']}")
+    log("[distributed] (b) max |two ranks - unsharded|: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    log(f"[distributed] (b) system, dist_mesh of 2: keyframes {s0['keyframes']} (single process "
+        f"{kfs1}), valid {len(valid)}/{SEQ_FRAMES}, ATE {ate:.6f} (bar 0.02; single process "
+        f"{ate1:.6f}), lost {s0['lost']}, wall {s0['wall']:.1f} / {s1['wall']:.1f} s, keyframe "
+        f"ms p50 {float(np.median(s0['kf_ms'])) if s0['kf_ms'] else float('nan'):.1f}; "
+        f"collectives {s0['collectives']} ({s0['bytes']} B); pyramid launches "
+        f"{s0['launches']} + {s1['launches']}, plain {s0['plain'] + s1['plain']}")
+    if not same or not same_traj:
+        failures.append("(b) the two ranks differ")
+    if not ate <= 0.02 or len(valid) != SEQ_FRAMES or s0["lost"]:
+        failures.append(f"(b) system: {len(valid)} valid poses, ATE {ate}")
+    if abs(s0["keyframes"] - kfs1) > 1:
+        failures.append(f"(b) {s0['keyframes']} keyframes, single process {kfs1}")
+    for s in (s0, s1):
+        if s["launches"] != SEQ_FRAMES + s["retries"] or s["plain"] != 0:
+            failures.append(f"(b) pyramid launches {s['launches']}, plain {s['plain']}")
+    if launches != builds or plain != 0:
+        failures.append(f"single process: pyramid launches {launches}, plain {plain}")
+
+    # (c) the multi-rank self-check
+    msg = dryrun_multichip(2, device="cuda")
+    log(f"[distributed] (c) {msg}")
+    log(f"[distributed] phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError("distributed: " + "; ".join(failures))
+    return launches + s0["launches"] + s1["launches"]
+
+
 def main():
     card = phase_environment()
     phase_build()
@@ -1353,6 +1715,7 @@ def main():
     launches += phase_loop_sequence(card)
     launches += phase_photocal(card)
     launches += phase_checkpoint(card)
+    launches += phase_distributed(card)
     log(json.dumps({"kernels": [{
         "name": "pyramid_fused", "route": "cuda",
         "source": "hslam_tpu_torch/csrc/pyramid.cu",

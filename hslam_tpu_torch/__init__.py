@@ -12,9 +12,11 @@ through `process_frame` and the pipelined `process_frame_pipelined` with
 the mapping thread and the loop-closure worker: bootstrap with direct
 refinement, tracking, ORB features and indirect association, the keyframe
 step, non-keyframe tracing, PnP relocalization, BoW place recognition with
-PnP verification and the Sim3 pose graph (dense and matrix-free). The
-pyramid is a hand-written CUDA kernel (csrc/pyramid.cu); everything else
-is plain torch.
+PnP verification and the Sim3 pose graph (dense and matrix-free), online
+photometric calibration, checkpoint/resume, the metrics stream, and the
+sharded solvers of `parallel/` on torch.distributed (`dist_mesh`; one
+process per rank, see parallel/__init__.py). The pyramid is a hand-written
+CUDA kernel (csrc/pyramid.cu); everything else is plain torch.
 """
 
 import torch as _torch

@@ -14,6 +14,9 @@ back as uint32, so a round trip is bit-exact.
 Photometric calibration: PhotoParams crosses like the state, so a parity
 test can start the port's warm refit from the JAX package's parameters.
 
+The global BA's problem (GlobalBA) crosses like the PoseGraph: its index
+arrays are int32 in the JAX package and int64 in the port.
+
 Loop closure: a Vocabulary and a PoseGraph cross like any other structure
 (the vocabulary's k, levels and n_words are plain ints). The loop closer's
 database is a list of KeyframeEntry dataclasses of numpy arrays on both
@@ -39,12 +42,13 @@ from .ops import bow as _bow
 from .ops import epipolar as _epi
 from .ops import features as _ft
 from .ops import tracker as _trk
+from .parallel import global_ba as _gba
 
 _PORT_TYPES = {cls.__name__: cls for cls in (
     _w.Window, _w.Frames, _w.Points, _ks.Imm, _ks.KFBundle, _epi.TraceState,
     _trk.Template, _trk.TrackResult, _calib.Calib, _ft.Feats,
     _ba.Linearization, _ba.GNSystem, _ba.FrozenResiduals, _opt.BAResult,
-    _bow.Vocabulary, _pg.PoseGraph, _pc.PhotoParams)}
+    _bow.Vocabulary, _pg.PoseGraph, _pc.PhotoParams, _gba.GlobalBA)}
 
 
 def _is_namedtuple(x) -> bool:
@@ -59,6 +63,9 @@ def from_numpy(tree, device="cuda"):
         out = cls(**{k: from_numpy(getattr(tree, k), device) for k in cls._fields})
         if cls is _pg.PoseGraph:      # the port indexes with int64
             out = out._replace(edge_i=out.edge_i.long(), edge_j=out.edge_j.long())
+        if cls is _gba.GlobalBA:
+            out = out._replace(host=out.host.long(), obs_p=out.obs_p.long(),
+                               obs_t=out.obs_t.long())
         return out
     if isinstance(tree, (list, tuple)):
         return type(tree)(from_numpy(x, device) for x in tree)
@@ -71,6 +78,10 @@ def from_numpy(tree, device="cuda"):
 
 
 def to_numpy(tree):
+    if isinstance(tree, _gba.GlobalBA):
+        out = _gba.GlobalBA(**{k: to_numpy(getattr(tree, k)) for k in tree._fields})
+        return out._replace(host=out.host.astype(np.int32), obs_p=out.obs_p.astype(np.int32),
+                            obs_t=out.obs_t.astype(np.int32))
     if isinstance(tree, (_ft.Feats, _bow.Vocabulary, _pg.PoseGraph)):
         out = type(tree)(**{k: to_numpy(getattr(tree, k)) for k in tree._fields})
         if isinstance(tree, _ft.Feats):

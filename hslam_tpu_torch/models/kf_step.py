@@ -30,6 +30,7 @@ from ..ops import distmap as dist_ops
 from ..ops import epipolar as epi_ops
 from ..ops import features as ft
 from ..ops import tracker as trk_ops
+from ..parallel.dist_ba import sharded_ba_optimize, sharded_marginalize_points
 from ..utils import lie
 from ..utils.compaction import assign_free_slots, scatter_update
 from ..utils.interp import bilinear
@@ -197,9 +198,10 @@ def activate_candidates(window: W.Window, calib: Calib, imm: Imm, new_slot: int,
 
 
 def flag_and_marg_points(window: W.Window, calib: Calib, flag_mask: torch.Tensor,
-                         cfg: Config):
+                         cfg: Config, mesh=None):
     """flagPointsForRemoval + marginalizePointsF with the isOOB policy of
-    MapPoint.h:133-161. Returns (window, removed_per_host, conn_marg)."""
+    MapPoint.h:133-161, point-sharded over `mesh` when one is given.
+    Returns (window, removed_per_host, conn_marg)."""
     pts, frames = window.points, window.frames
     F = frames.valid.shape[0]
     active = pts.status == W.PT_ACTIVE
@@ -235,7 +237,10 @@ def flag_and_marg_points(window: W.Window, calib: Calib, flag_mask: torch.Tensor
     removed_host.index_add_(0, h, removed.to(torch.int32))
     onehot = torch.nn.functional.one_hot(h, F).float()
     conn_marg = (onehot.T @ (res_in & to_marg[:, None]).float()).to(torch.int32)
-    wnd = marginalize_points(window, calib, to_marg, to_drop, cfg)
+    if mesh is None:
+        wnd = marginalize_points(window, calib, to_marg, to_drop, cfg)
+    else:
+        wnd = sharded_marginalize_points(mesh, window, calib, to_marg, to_drop, cfg)
     return wnd, removed_host, conn_marg
 
 
@@ -347,9 +352,12 @@ def kf_step(window: W.Window, calib: Calib, imm: Imm, feats: ft.Feats,
             pyr: List[torch.Tensor], R_new, t_new, aff_new, exp_new, slot: int,
             kf_id: int, ref_slot: int, flag_mask: np.ndarray, act_dist: float,
             n_iter: int, sel_u, sel_v, sel_type, sel_valid, cfg: Config,
-            ind_w_scale=None):
+            ind_w_scale=None, mesh=None):
     """One keyframe insertion (AddKeyframe, Mapping.cpp:12-142). Returns
-    (window, calib, imm, feats, template, ba_result, bundle)."""
+    (window, calib, imm, feats, template, ba_result, bundle).
+
+    `mesh` (a `parallel.distributed.Mesh`): the windowed BA and the point
+    marginalization run point-sharded over it (SLAMSystem(dist_mesh=...))."""
     F = cfg.max_frames
     dev = R_new.device
     frames = window.frames
@@ -392,8 +400,11 @@ def kf_step(window: W.Window, calib: Calib, imm: Imm, feats: ft.Feats,
     if cfg.enable_indirect:
         window = indirect_associate(window, feats, slot, cfg, ind_w_scale=ind_w_scale)
 
-    # 5. optimize
-    result: BAResult = ba_optimize(window, calib, cfg, n_iter)
+    # 5. optimize (point-sharded over the mesh when given)
+    if mesh is None:
+        result: BAResult = ba_optimize(window, calib, cfg, n_iter)
+    else:
+        result = sharded_ba_optimize(mesh, window, calib, cfg, n_iter)
     window, calib = result.window, result.calib
 
     # 6. remove outliers (active points with no active residual)
@@ -427,7 +438,8 @@ def kf_step(window: W.Window, calib: Calib, imm: Imm, feats: ft.Feats,
         kp_depth_ok = torch.zeros(NF, dtype=torch.bool, device=dev)
 
     # 8. flag + marginalize points
-    window, removed_host, conn_marg = flag_and_marg_points(window, calib, flag_t, cfg)
+    window, removed_host, conn_marg = flag_and_marg_points(window, calib, flag_t, cfg,
+                                                           mesh=mesh)
 
     # 9. new candidate traces: keypoint-hosted candidates first (they carry
     # the descriptor link), then the selector picks

@@ -12,8 +12,9 @@ pose-graph correction (port of hslam_tpu/models/loop_closure.py).
      scale-free and degenerate for the near-zero-baseline revisits loops
      are made of), checked by the reverse solve;
   4. the keyframe pose graph is relaxed with the loop edge plus sequential
-     odometry edges (models/pose_graph.py), and the correction is handed
-     back to the host to re-anchor shells and the active window.
+     odometry edges (models/pose_graph.py; beyond `dense_max_nodes` on a
+     mesh, edge-sharded by parallel/dist_pose_graph.py), and the correction
+     is handed back to the host to re-anchor shells and the active window.
 
 The database lives on the host as numpy (it is policy state, read entry by
 entry); scoring, matching, PnP and the relaxation run on `device`.
@@ -36,6 +37,7 @@ import torch
 from ..ops import bow as bow_ops
 from ..ops import orb as orb_ops
 from ..ops import pnp as pnp_ops
+from ..parallel.dist_pose_graph import sharded_optimize_pose_graph_pcg
 from . import pose_graph as pg_mod
 
 _LC_DEBUG = os.environ.get("HSLAM_LC_DEBUG") == "1"
@@ -104,7 +106,9 @@ class LoopCloser:
         translation, or 0.3 rad in rotation; correcting below the PnP noise
         floor injects error instead of removing drift. `consistency_th`:
         consecutive keyframes that must agree on the candidate place before
-        a loop fires. Tensors are made on the vocabulary's device."""
+        a loop fires. `dist_mesh` (a `parallel.distributed.Mesh`): graphs
+        beyond `dense_max_nodes` relax edge-sharded over it. Tensors are made
+        on the vocabulary's device."""
         self.vocab = vocab
         self.device = vocab.centroids.device
         self.entries: List[KeyframeEntry] = []
@@ -124,7 +128,7 @@ class LoopCloser:
         # correction was refused only by the significance gate: a low-drift
         # run rightly closes 0 loops, and this shows the chain was live
         self.n_verified_insignificant = 0
-        # edge-sharded relaxation over a device mesh: not ported
+        # matrix-free relaxations edge-sharded over this mesh when one is set
         self.dist_mesh = dist_mesh
         # graphs up to this many nodes relax with the dense GN solver;
         # larger ones use matrix-free PCG
@@ -348,8 +352,9 @@ class LoopCloser:
         if N <= self.dense_max_nodes:
             s_new, R_new, t_new = pg_mod.optimize_pose_graph(pg, n_iters=8, fix_scale=fix_scale)
         elif self.dist_mesh is not None:
-            raise NotImplementedError(
-                "not ported to hslam_tpu_torch yet: the edge-sharded relaxation (dist_mesh)")
+            s_new, R_new, t_new = sharded_optimize_pose_graph_pcg(
+                self.dist_mesh, pg, n_iters=8,
+                cg_iters=min(4 * pg_mod.bucket_size(N), 4000), fix_scale=fix_scale)
         else:
             s_new, R_new, t_new = pg_mod.optimize_pose_graph_pcg(
                 pg, n_iters=8, cg_iters=min(4 * pg_mod.bucket_size(N), 4000),

@@ -9,6 +9,13 @@ GN `lax.while_loop` is a Python loop whose convergence test is one host
 sync per iteration. The (D, D) camera system (D = 68 at 8 frames) is solved
 with torch.linalg.solve_ex: a singular system yields non-finite entries,
 which the NaN guard zeroes, instead of an exception.
+
+`axis` (ba_optimize, marginalize_points): a `parallel.distributed.Mesh`
+when the points are this rank's block of a point-sharded window
+(parallel/dist_ba.py). Per-point work stays on the block; the camera
+system, the convergence statistics, the energies and the energy quantile
+are reduced over the mesh, as the JAX package's `psum`/`all_gather` over
+its `axis`. With `axis=None` nothing is reduced.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ from ..config import CALIB_SCALE, CPARS, FRAME_STATE_SCALE, PATTERN_NUM, Config
 from ..models import window as W
 from ..models.calib import Calib
 from ..ops import ba
+from ..parallel.distributed import all_gather, psum
 from ..utils import lie
 
 
@@ -103,16 +111,18 @@ def _residual_grid_mask(frames: W.Frames, points: W.Points):
 
 
 def _update_energy_th(frames: W.Frames, lin: ba.Linearization, grid,
-                      newest_slot, cfg: Config) -> W.Frames:
+                      newest_slot, cfg: Config, axis=None) -> W.Frames:
     """setNewFrameEnergyTH: 0.7-quantile of the residual energies into the
-    newest frame, blended with a constant, squared."""
+    newest frame, blended with a constant, squared. Under point-sharding
+    (`axis`) the values are gathered first: the quantile is a global order
+    statistic."""
     F = frames.valid.shape[0]
     dev = grid.device
     tgt_new = torch.arange(F, device=dev)[None, :] == newest_slot
     mask = grid & tgt_new & (lin.energy_raw >= 0)
     vals = torch.where(mask, lin.energy_raw, torch.full_like(lin.energy_raw, float("inf")))
-    flat = torch.sort(vals.reshape(-1)).values
-    n = mask.sum()
+    flat = torch.sort(all_gather(vals.reshape(-1), axis)).values
+    n = psum(mask.sum(), axis)
     nth = torch.clamp((cfg.frame_energy_th_n * n.float()).to(torch.int64), 0,
                       flat.shape[0] - 1)
     nth_val = torch.sqrt(torch.clamp(flat[nth], min=0.0))
@@ -130,8 +140,11 @@ def newest_slot_of(frames: W.Frames):
 
 
 def ba_optimize(wnd: W.Window, calib: Calib, cfg: Config, n_iterations: int,
-                frozen: Optional[ba.FrozenResiduals] = None) -> BAResult:
-    """The GN loop of one keyframe insertion (System::optimize)."""
+                frozen: Optional[ba.FrozenResiduals] = None, axis=None) -> BAResult:
+    """The GN loop of one keyframe insertion (System::optimize). Under
+    `axis` the camera system, the convergence statistics (so that every
+    rank takes the same exit), the energy and the residual count are
+    reduced over the mesh."""
     frames, points = wnd.frames, wnd.points
     F = frames.valid.shape[0]
     dev = frames.state.device
@@ -160,7 +173,8 @@ def ba_optimize(wnd: W.Window, calib: Calib, cfg: Config, n_iterations: int,
 
         delta = _stitched_delta(frames, calib)
         prior_diag, prior_b = _prior_vectors(frames, calib, cfg)
-        x = solve_camera_system(sys.H, sys.b, H_sc, b_sc, wnd.HM, wnd.bM, delta,
+        H, b, H_sc, b_sc = psum((sys.H, sys.b, H_sc, b_sc), axis)
+        x = solve_camera_system(H, b, H_sc, b_sc, wnd.HM, wnd.bM, delta,
                                 prior_diag, prior_b, slot_mask, ns_proj, lam,
                                 i >= cfg.orthogonalize_x_from_iter, cfg)
         x = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
@@ -175,9 +189,9 @@ def ba_optimize(wnd: W.Window, calib: Calib, cfg: Config, n_iterations: int,
         sumB = (f_step[:, 7] ** 2).sum() / nf
         sumT = (f_step[:, 0:3] ** 2).sum() / nf
         sumR = (f_step[:, 3:6] ** 2).sum() / nf
-        npts = torch.clamp(pt_active.sum(), min=1)
-        sumNID = torch.where(pt_active, points.idepth.abs(),
-                             torch.zeros_like(points.idepth)).sum() / npts
+        npts = torch.clamp(psum(pt_active.sum(), axis), min=1)
+        sumNID = psum(torch.where(pt_active, points.idepth.abs(),
+                                  torch.zeros_like(points.idepth)).sum(), axis) / npts
         th = cfg.th_opt_iterations
         canbreak = ((torch.sqrt(sumA) < 0.0005 * th) & (torch.sqrt(sumB) < 0.00005 * th)
                     & (torch.sqrt(sumR) < 0.00005 * th)
@@ -207,7 +221,7 @@ def ba_optimize(wnd: W.Window, calib: Calib, cfg: Config, n_iterations: int,
     lin = ba.linearize(frames, points, calib, cfg, window_gate=True)
     new_rs = torch.where(res_state == W.RES_OOB, W.RES_OOB, lin.new_state).to(torch.int32)
     active = (new_rs == W.RES_IN) & grid
-    frames = _update_energy_th(frames, lin, grid, newest_slot, cfg)
+    frames = _update_energy_th(frames, lin, grid, newest_slot, cfg, axis=axis)
 
     pt_phot = active.sum(1) > 0
     sys = ba.accumulate(lin, active, points.host, AH, AT, F,
@@ -231,8 +245,8 @@ def ba_optimize(wnd: W.Window, calib: Calib, cfg: Config, n_iterations: int,
             new_in, torch.maximum(points.max_rel_baseline, relbs_new),
             points.max_rel_baseline),
     )
-    E_total = torch.where(active, lin.energy, z).sum()
-    n_res = torch.clamp(active.sum(), min=1)
+    E_total = psum(torch.where(active, lin.energy, z).sum(), axis)
+    n_res = torch.clamp(psum(active.sum(), axis), min=1)
     rmse = torch.sqrt(E_total / (PATTERN_NUM * n_res))
     return BAResult(
         window=W.Window(frames=frames, points=points, HM=wnd.HM, bM=wnd.bM),
@@ -243,9 +257,10 @@ def ba_optimize(wnd: W.Window, calib: Calib, cfg: Config, n_iterations: int,
 
 
 def marginalize_points(wnd: W.Window, calib: Calib, to_marg, to_drop,
-                       cfg: Config) -> W.Window:
+                       cfg: Config, axis=None) -> W.Window:
     """flagPointsForRemoval + marginalizePointsF: relinearize, extrapolate
-    to the zero-delta point, fold margWeightFac * (M - Msc) into HM/bM."""
+    to the zero-delta point, fold margWeightFac * (M - Msc) into HM/bM.
+    Under `axis` the folded blocks are summed over the mesh."""
     frames, points = wnd.frames, wnd.points
     F = frames.valid.shape[0]
     AH, AT = ba.compute_adjoints(frames)
@@ -271,8 +286,9 @@ def marginalize_points(wnd: W.Window, calib: Calib, to_marg, to_drop,
     ind_active = ind_active & pt_mask[:, None]
     sys = ba.accumulate(lin, active, points.host, AH, AT, F, ind_active=ind_active)
 
-    HM = wnd.HM + cfg.marg_weight_fac * (sys.H - H_sc)
-    bM = wnd.bM + cfg.marg_weight_fac * (sys.b - b_sc)
+    H_top, b_top, H_sc_g, b_sc_g = psum((sys.H, sys.b, H_sc, b_sc), axis)
+    HM = wnd.HM + cfg.marg_weight_fac * (H_top - H_sc_g)
+    bM = wnd.bM + cfg.marg_weight_fac * (b_top - b_sc_g)
     new_status = torch.where(to_marg | to_drop, W.PT_EMPTY, points.status)
     return W.Window(frames=frames, points=points._replace(status=new_status.to(torch.int32)),
                     HM=HM, bM=bM)

@@ -25,7 +25,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..parallel.distributed import psum
 from ..utils import lie
+from ..utils.segsum import SortedBins
 
 # per-GN-iteration cap on each node's sim3 tangent step norm (trust region):
 # real corrections move nodes by far less per iteration; an inconsistent
@@ -150,17 +152,24 @@ def optimize_pose_graph(pg: PoseGraph, n_iters: int = 10, lam: float = 1e-6,
 
 def optimize_pose_graph_pcg(pg: PoseGraph, n_iters: int = 10, cg_iters: int = 150,
                             cg_tol: float = 1e-8, lam: float = 1e-6,
-                            fix_scale: bool = False, stats: Optional[dict] = None):
+                            fix_scale: bool = False, stats: Optional[dict] = None,
+                            axis=None):
     """Sparse pose-graph GN: never materializes J or H.
 
     Per GN iteration: the per-edge Jacobian blocks, then preconditioned CG
-    on the normal equations with H x evaluated as two batched products and
-    two index_adds over edges (O(E) work and memory) and a block-Jacobi
+    on the normal equations with H x evaluated as one batched product over
+    edges and sums into nodes (O(E) work and memory), and a block-Jacobi
     preconditioner (per-node 7x7 sums of the incident J^T J blocks, one
-    batched inverse). The CG loop tests its residual on the host every
-    iteration, as the reference's while_loop does on the device: one host
-    sync per CG iteration. Float index_add on CUDA sums in no fixed order,
-    so two runs agree to rounding, not bit for bit.
+    batched inverse). The sums into nodes have a fixed order
+    (utils/segsum.SortedBins, sorted once per call), so a run gives
+    the same bits every time (C14). The CG loop tests its residual on the
+    host every iteration, as the reference's while_loop does on the device:
+    one host sync per CG iteration.
+
+    `axis`: a `parallel.distributed.Mesh` when the edge arrays are this
+    rank's block (parallel/dist_pose_graph.py). Node states stay
+    replicated; every sum into nodes is summed over the mesh, so the CG
+    residual, and the stopping test read from it, is the same on every rank.
 
     `stats`, when given, receives `cg_iterations` and `host_syncs` summed
     over the GN iterations.
@@ -174,6 +183,10 @@ def optimize_pose_graph_pcg(pg: PoseGraph, n_iters: int = 10, cg_iters: int = 15
     node_mask = (~_pinned(pg)).to(dt)[:, None] * dim_ok[None, :]     # (N, 7)
     zero = torch.zeros((N, 7), dtype=dt, device=dev)
     n_cg = n_sync = 0
+    E = pg.edge_i.shape[0]
+    # the edges' two ends as one list of (edge, node) entries, sorted by node
+    bins = SortedBins(torch.cat([pg.edge_i, pg.edge_j]), N)
+    e_of = bins.order % E
 
     for _ in range(n_iters):
         ei, ej = pg.edge_i, pg.edge_j
@@ -182,20 +195,16 @@ def optimize_pose_graph_pcg(pg: PoseGraph, n_iters: int = 10, cg_iters: int = 15
         Ji, Jj = edge_jacobians(pg)
         Ji = Ji * sw[:, None, None]
         Jj = Jj * sw[:, None, None]
+        JT = torch.cat([Ji, Jj]).transpose(1, 2)[bins.order]          # (2E, 7, 7) sorted
 
         def scat(y):
-            """J^T y accumulated into nodes: (E, 7) -> (N, 7)."""
-            out = torch.zeros((N, 7), dtype=dt, device=dev)
-            out.index_add_(0, ei, (Ji.transpose(1, 2) @ y[..., None])[..., 0])
-            out.index_add_(0, ej, (Jj.transpose(1, 2) @ y[..., None])[..., 0])
-            return out
+            """J^T y summed into nodes: (E, 7) -> (N, 7)."""
+            return psum(bins.sum_sorted((JT @ y[e_of][..., None])[..., 0]).to(dt), axis)
 
         b = scat(r0) * node_mask
 
         # block-Jacobi preconditioner + GN damping (per-node 7x7)
-        Pn = torch.zeros((N, 7, 7), dtype=dt, device=dev)
-        Pn.index_add_(0, ei, Ji.transpose(1, 2) @ Ji)
-        Pn.index_add_(0, ej, Jj.transpose(1, 2) @ Jj)
+        Pn = psum(bins.sum_sorted(JT @ JT.transpose(1, 2)).to(dt), axis)
         damp = torch.clamp(torch.diagonal(Pn, dim1=1, dim2=2) * lam, min=1e-8)
         # pinned dims get identity rows so the batched inverse stays sane
         mm = node_mask[:, :, None] * node_mask[:, None, :]

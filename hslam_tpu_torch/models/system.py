@@ -47,8 +47,12 @@ fits are blended into the correction. `metrics_path` streams JSONL records:
 one "frame" per tracked frame of `process_frame`, one "kf" and one "map"
 (the window's point cloud) per keyframe.
 
-Refused with NotImplementedError, not silently skipped: point-sharded BA
-(`dist_mesh`).
+`dist_mesh` (a `parallel.distributed.Mesh`): the windowed BA and the point
+marginalization run point-sharded over its ranks, and the loop closer's
+matrix-free pose graph edge-sharded over a group of its own. Every rank
+runs this same system over the same frames (parallel/__init__.py). Refused
+with NotImplementedError: the entry with the mapping thread
+(`sequential=False`) on more than one rank (ROADMAP C15).
 """
 from __future__ import annotations
 
@@ -236,9 +240,30 @@ class SLAMSystem:
 
         `metrics_path`: a JSONL stream of "frame", "kf" and "map" records
         (one json.dumps per record, no extra device pulls but the map
-        record's point cloud)."""
+        record's point cloud).
+
+        `dist_mesh` (optional `parallel.distributed.Mesh`, made on every
+        rank, which all run this constructor and feed the same frames):
+        point-shard the windowed BA and the point marginalization over the
+        mesh; cfg.max_points must divide into the mesh size."""
         if dist_mesh is not None:
-            raise NotImplementedError("not ported to hslam_tpu_torch yet: dist_mesh")
+            if cfg.max_points % dist_mesh.size:
+                raise ValueError(f"max_points {cfg.max_points} does not divide into "
+                                 f"the mesh size {dist_mesh.size}")
+            if not sequential and dist_mesh.size > 1:
+                # C15: the mapping thread keyframes whichever queued frame is
+                # freshest and the new reference lands when it finishes (C7),
+                # so ranks would keyframe different frames and then wait on
+                # each other in mismatched collectives
+                raise NotImplementedError(
+                    "sequential=False on a mesh of more than one rank: the mapping "
+                    "thread's keyframe choice depends on thread timing, so the ranks "
+                    "would diverge and deadlock in their collectives; use "
+                    "sequential=True (process_frame) on a mesh")
+        self.dist_mesh = dist_mesh
+        # the loop closer's pose graph may run on the worker thread while the
+        # mapping thread's BA uses dist_mesh: a group of its own
+        self._edge_mesh = None if dist_mesh is None else dist_mesh.split("edges")
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -1260,7 +1285,8 @@ class SLAMSystem:
             self.window, self.calib, self.imm, self.feats, pyr, self._f32(Twc[:3, :3]),
             self._f32(Twc[:3, 3]), self._f32(shell.aff), self._f32(shell.exposure or 1.0),
             slot, shell.kf_id, self.ref_slot, flag_mask, float(self.current_min_act_dist),
-            iters, sel_u, sel_v, sel_type, sel_valid, cfg, ind_w_scale=iw_scale)
+            iters, sel_u, sel_v, sel_type, sel_valid, cfg, ind_w_scale=iw_scale,
+            mesh=self.dist_mesh)
         self.window, self.calib, self.imm, self.feats = window, calib, imm, feats
         self._K_pyr_cache = k_pyr_from_value(self.calib.value, cfg.pyr_levels)
         self.slot_shell[slot] = shell.id
@@ -1385,7 +1411,8 @@ class SLAMSystem:
 
     # -------------------------------------------------------- loop closure
     def _make_loop_closer(self, vocab: bow_ops.Vocabulary) -> LoopCloser:
-        return LoopCloser(vocab, min_gap=10, min_loop_error_rel=1.0, consistency_th=2)
+        return LoopCloser(vocab, min_gap=10, dist_mesh=self._edge_mesh,
+                          min_loop_error_rel=1.0, consistency_th=2)
 
     def _lift_keypoint_depths(self, u, v, radius_px: float = 3.0):
         """Nearest-template-point inverse depth of keypoints, from the newest

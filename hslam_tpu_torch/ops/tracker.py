@@ -22,6 +22,7 @@ from ..config import Config, SCALE_A, SCALE_B, SCALE_XI_ROT, SCALE_XI_TRANS
 from ..models.calib import k_pyr_from_value
 from ..utils import lie
 from ..utils.interp import pack_cells
+from ..utils.segsum import bin_sums
 from .pyramid import build_direct_pyramid
 
 # tracker preconditioner, ordering [trans(3), rot(3), a, b] (the reference's
@@ -63,30 +64,6 @@ def _sum_pool2(m):
     return m[: H2 * 2, : W2 * 2].reshape(H2, 2, W2, 2).sum(dim=(1, 3))
 
 
-def _bin_sums(idx: torch.Tensor, vals: torch.Tensor, size: int) -> torch.Tensor:
-    """vals (N, C) summed into `size` bins by idx (N,), the same bits on
-    every run: a float index_add_ on CUDA adds in no fixed order (C4), and
-    one differing bit in the template grows into another trajectory over a
-    long sequence (C11). Entries sorted by bin, a float64 running sum, each
-    bin's total read at its last entry (so rounded once to float32) and
-    written where no other entry writes."""
-    n = idx.shape[0]
-    order = torch.argsort(idx, stable=True)
-    i, v = idx[order], vals[order].double()
-    cs = torch.cumsum(v, 0)
-    new_bin = torch.ones(n, dtype=torch.bool, device=idx.device)
-    new_bin[1:] = i[1:] != i[:-1]
-    last = torch.ones_like(new_bin)
-    last[:-1] = new_bin[1:]
-    pos = torch.arange(n, device=idx.device)
-    start = torch.cummax(torch.where(new_bin, pos, 0), 0).values
-    total = cs - (cs - v)[start]                 # inclusive sum since the bin's start
-    out = torch.zeros((size + 1,) + tuple(vals.shape[1:]), dtype=torch.float64,
-                      device=idx.device)
-    out[torch.where(last, i, size)] = total      # the other entries land in a dropped row
-    return out[:size].to(vals.dtype)
-
-
 def build_template(u, v, idepth, weight, point_valid,
                    ref_pyr: List[torch.Tensor]) -> Template:
     """Per-level compacted tracking template from the active points
@@ -95,7 +72,8 @@ def build_template(u, v, idepth, weight, point_valid,
     ui = torch.clamp((u + 0.5).to(torch.int32), 0, W0 - 1).long()
     vi = torch.clamp((v + 0.5).to(torch.int32), 0, H0 - 1).long()
     w_eff = torch.where(point_valid, weight, torch.zeros_like(weight))
-    sums = _bin_sums(vi * W0 + ui, torch.stack([w_eff * idepth, w_eff], -1), H0 * W0)
+    # fixed-order sums: the same template bits on every run (C11)
+    sums = bin_sums(vi * W0 + ui, torch.stack([w_eff * idepth, w_eff], -1), H0 * W0)
     id_map = sums[:, 0].reshape(H0, W0)
     w_map = sums[:, 1].reshape(H0, W0)
     dev = u.device

@@ -1,5 +1,7 @@
 """hslam_tpu_torch: Config and constants equal the JAX package's; the port
-imports no jax; unported options are refused, not silently skipped."""
+imports no jax; options are refused, not silently skipped, where the port
+does not run them."""
+import copy
 import dataclasses
 import os
 import pathlib
@@ -69,16 +71,43 @@ def test_port_sources_name_no_jax_import():
 SLICE = dict(enable_indirect=False, init_direct_refine=False)
 
 
+@pytest.fixture(scope="module")
+def mesh1(tmp_path_factory):
+    """A port Mesh over a world of one (Gloo, file rendezvous), torn down
+    with the module: the default group is global state in a worker."""
+    from hslam_tpu_torch.parallel import distributed as D
+    D.initialize(f"file://{tmp_path_factory.mktemp('rdv')}/rdv", 1, 0, "gloo")
+    yield D.global_mesh("points")
+    torch.distributed.destroy_process_group()
+
+
 @pytest.mark.parametrize("kwargs", [
-    dict(cfg=SLICE, dist_mesh=object()),
+    dict(cfg=dict(SLICE, max_points=256), dist_mesh=3),
 ], ids=["dist_mesh"])
-def test_system_refuses_unported_options(kwargs):
+def test_system_refuses_unported_options(kwargs, mesh1):
+    """dist_mesh is ported: the system takes a port Mesh (and hands its
+    kf_step the mesh and its loop closer a group of its own), and, as the
+    JAX package, refuses a mesh whose size does not divide max_points."""
+    import jax
+    from jax.sharding import Mesh as JMesh
+
+    from hslam_tpu.models.system import SLAMSystem as JSLAM
     from hslam_tpu_torch.models.system import SLAMSystem
     kw = dict(enable_loop_closure=False)
     kw.update(kwargs)
     cfg = tcfg.Config(**kw.pop("cfg"))
-    with pytest.raises(NotImplementedError):
-        SLAMSystem(80.0, 80.0, 63.5, 47.5, 128, 96, cfg, device="cpu", **kw)
+    n = kw.pop("dist_mesh")
+    args = (80.0, 80.0, 63.5, 47.5, 128, 96)
+    with pytest.raises(AssertionError):
+        JSLAM(*args, jcfg.Config(**dataclasses.asdict(cfg)),
+              dist_mesh=JMesh(np.array(jax.devices()[:n]), ("points",)), **kw)
+    wide = copy.copy(mesh1)
+    wide.size = n                # what a mesh of n ranks reports
+    with pytest.raises(ValueError, match="max_points"):
+        SLAMSystem(*args, cfg, device="cpu", dist_mesh=wide, **kw)
+    slam = SLAMSystem(*args, cfg, device="cpu", dist_mesh=mesh1, **kw)
+    assert slam.dist_mesh is mesh1 and slam._edge_mesh.size == 1
+    assert slam._edge_mesh.group is not mesh1.group
 
 
 @pytest.mark.parametrize("kwargs", [

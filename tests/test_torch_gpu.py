@@ -1,8 +1,8 @@
 """Card-only tests of the port: the hand-written pyramid kernel against its
 plain torch version on the same CUDA tensors, the wrapper's refusals, and
 the hybrid modules (features, matching, init refinement, PnP, the fused
-track_step) on CUDA against the CPU. Every test here needs a CUDA device and skips without
-one. The file imports no jax, so on a GPU host without jax it runs without
+track_step) on CUDA against the CPU, and the point-sharded BA over a world
+of one on NCCL. Every test here needs a CUDA device and skips without one. The file imports no jax, so on a GPU host without jax it runs without
 tests/conftest.py (which imports jax):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -m gpu
@@ -286,3 +286,37 @@ def test_system_runs_on_the_card_by_default(cuda_device):
                       enable_loop_closure=False)
     assert slam.device.type == "cuda" and slam.window.frames.images.device.type == "cuda"
     slam.close()
+
+
+@pytest.mark.gpu
+def test_world_of_one_nccl_sharded_ba_equals_unsharded(cuda_device, tmp_path):
+    """The point-sharded BA optimize and point marginalization over a world
+    of one on NCCL give the unsharded bits on the card."""
+    import torch.distributed as dist
+
+    from hslam_tpu_torch.config import Config
+    from hslam_tpu_torch.models import optimizer as opt
+    from hslam_tpu_torch.parallel import distributed as D
+    from hslam_tpu_torch.parallel.dist_ba import (sharded_ba_optimize,
+                                                  sharded_marginalize_points)
+    from hslam_tpu_torch.parallel.dryrun import ba_inputs
+    cfg = Config(max_frames=8, max_points=2048, pyr_levels=2)
+    wnd, calib = ba_inputs(cfg, device="cuda")
+    D.initialize(f"file://{tmp_path}/rdv", 1, 0, "nccl")
+    try:
+        mesh = D.global_mesh("points")
+        a, b = sharded_ba_optimize(mesh, wnd, calib, cfg, 4), opt.ba_optimize(wnd, calib, cfg, 4)
+        tm = torch.arange(cfg.max_points, device="cuda") % 5 == 0
+        td = (torch.arange(cfg.max_points, device="cuda") % 7 == 3) & ~tm
+        ma = sharded_marginalize_points(mesh, a.window, a.calib, tm, td, cfg)
+        mb = opt.marginalize_points(b.window, b.calib, tm, td, cfg)
+        torch.cuda.synchronize()
+        assert mesh.n_collectives > 0
+    finally:
+        dist.destroy_process_group()
+
+    def leaves(t):
+        return [t] if isinstance(t, torch.Tensor) else (
+            [x for y in t for x in leaves(y)] if isinstance(t, tuple) else [])
+    for x, y in zip(leaves((a, ma)), leaves((b, mb))):
+        assert torch.equal(x, y)

@@ -486,7 +486,17 @@ def test_detect_gates(loop_case):
     assert c.detect(N_KF - 1, K) is not None and c.n_verified_insignificant == 1
 
 
-def test_correct_rejects_a_diverging_edge_and_the_sharded_branch(loop_case, monkeypatch):
+@pytest.fixture(scope="module")
+def mesh1(tmp_path_factory):
+    """A port Mesh over a world of one (Gloo, file rendezvous), torn down
+    with the module: the default group is global state in a worker."""
+    from hslam_tpu_torch.parallel import distributed as D
+    D.initialize(f"file://{tmp_path_factory.mktemp('rdv')}/rdv", 1, 0, "gloo")
+    yield D.global_mesh("edges")
+    torch.distributed.destroy_process_group()
+
+
+def test_correct_rejects_a_diverging_edge_and_the_sharded_branch(loop_case, monkeypatch, mesh1):
     c = copy.deepcopy(loop_case["tcl"])
     before = [e.cam_to_world.copy() for e in c.entries]
     loop = tlc.LoopResult(N_KF - 1, 0, np.eye(3), np.zeros(3), 1.0, 60)
@@ -506,18 +516,23 @@ def test_correct_rejects_a_diverging_edge_and_the_sharded_branch(loop_case, monk
     for e, T0 in zip(c.entries, before):
         np.testing.assert_array_equal(e.cam_to_world, T0)
     # beyond dense_max_nodes the matrix-free solver runs; with a mesh the
-    # edge-sharded one is refused
+    # edge-sharded one, which on a world of one gives the same bits
     c.dense_max_nodes = 4
-    c.dist_mesh = object()
-    with pytest.raises(NotImplementedError):
-        c.correct(loop)
-    c.dist_mesh = None
+    e = copy.deepcopy(c)
     d = copy.deepcopy(loop_case["tcl"])
     out_pcg = c.correct(loop, fix_scale=True)
     out_dense = d.correct(loop, fix_scale=True)
     assert len(out_pcg) == N_KF
     for (_, a), (_, b) in zip(out_pcg, out_dense):
         np.testing.assert_allclose(a, b, atol=2e-3)
+    e.dist_mesh = mesh1
+    calls = mesh1.n_collectives
+    out_sharded = e.correct(loop, fix_scale=True)
+    assert mesh1.n_collectives > calls
+    assert len(out_sharded) == N_KF
+    for (ia, a), (ib, b) in zip(out_sharded, out_pcg):
+        assert ia == ib
+        np.testing.assert_array_equal(a, b)
 
 
 # ------------------------------------------- the loop sequence, full size

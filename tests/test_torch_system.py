@@ -4,7 +4,8 @@ refinement: (a) the sequential entry against the JAX package's outcome on
 the same frames (recorded here; a slow test runs the JAX package live and
 checks the record), (b) the pipelined entry with the mapping thread under a 3x
 input skip, (c) the kidnapped camera that only relocalization recovers,
-(d) the options that stay refused, and how the mapping thread reports
+(d) the option that stays refused (the mapping thread on a mesh of more
+than one rank), and how the mapping thread reports
 failures, (e) the metrics stream through both entries, (f) loop closure in the system: the worker thread live in the
 pipelined run, the online vocabulary bootstrap, the connectivity map
 against the JAX package's, and a large gauge correction of the window.
@@ -12,6 +13,7 @@ against the JAX package's, and a large gauge correction of the window.
 Outcome-based tolerance for (a): the JAX package loses inserted points to
 fault C1 and the two packages draw different random numbers (C3), so the
 runs are compared by what they achieve."""
+import copy
 import sys
 
 import jax.numpy as jnp
@@ -208,12 +210,29 @@ def test_kidnap_triggers_relocalization(indirect):
         assert np.isfinite(err_full) and err_full < 0.15, err_full
 
 
-@pytest.mark.parametrize("kwargs", [dict(dist_mesh=object())], ids=["dist_mesh"])
-def test_hybrid_config_still_refuses(kwargs):
+@pytest.fixture(scope="module")
+def mesh1(tmp_path_factory):
+    """A port Mesh over a world of one (Gloo, file rendezvous), torn down
+    with the module: the default group is global state in a worker."""
+    from hslam_tpu_torch.parallel import distributed as D
+    D.initialize(f"file://{tmp_path_factory.mktemp('rdv')}/rdv", 1, 0, "gloo")
+    yield D.global_mesh("points")
+    torch.distributed.destroy_process_group()
+
+
+@pytest.mark.parametrize("kwargs", [dict(dist_mesh=2)], ids=["dist_mesh"])
+def test_hybrid_config_still_refuses(kwargs, mesh1):
+    """The entry with the mapping thread on a mesh of more than one rank
+    (C15): its keyframe choice depends on thread timing, so ranks would
+    diverge and deadlock in their collectives. A world of one runs it."""
     kw = dict(enable_loop_closure=False, sequential=False)
-    kw.update(kwargs)
-    with pytest.raises(NotImplementedError):
-        SLAMSystem(FX, FX, CX, CY, W, H, Config(**CFG_KW), device="cpu", **kw)
+    two = copy.copy(mesh1)
+    two.size = kwargs["dist_mesh"]       # what a mesh of two ranks reports
+    with pytest.raises(NotImplementedError, match="sequential=False"):
+        SLAMSystem(FX, FX, CX, CY, W, H, Config(**CFG_KW), device="cpu", dist_mesh=two, **kw)
+    slam = SLAMSystem(FX, FX, CX, CY, W, H, Config(**CFG_KW), device="cpu",
+                      dist_mesh=mesh1, **kw)
+    slam.close()
 
 
 def test_mapping_thread_exception_reaches_caller(monkeypatch):

@@ -18,6 +18,7 @@ from hslam_tpu_torch.convert import from_numpy
 from hslam_tpu_torch.io.synthetic import Scene, se3_exp_np
 from hslam_tpu_torch.ops import klt as tklt
 from hslam_tpu_torch.ops import tracker as ttrk
+from hslam_tpu_torch.utils.segsum import bin_sums
 
 torch.set_num_threads(1)
 
@@ -272,14 +273,15 @@ def test_track_step_matches(scene):
 
 @pytest.mark.parametrize("n_bins", [1, 7, 500])
 def test_template_bin_sums_fixed_order(n_bins):
-    """The template's per-pixel sums (build_template) are the exactly
-    rounded sums whatever the order of the entries, so the card gives the
-    same bits on every run (a float index_add_ there does not)."""
+    """The template's per-pixel sums (build_template, utils/segsum.bin_sums)
+    are the exactly rounded sums whatever the order of the entries, so the
+    card gives the same bits on every run (a float index_add_ there does
+    not)."""
     g = torch.Generator().manual_seed(n_bins)
     idx = torch.randint(0, n_bins, (300,), generator=g)
     vals = torch.randn(300, 2, generator=g) * 100.0
-    out = ttrk._bin_sums(idx, vals, n_bins)
+    out = bin_sums(idx, vals, n_bins)
     ref = torch.zeros(n_bins, 2, dtype=torch.float64).index_add_(0, idx, vals.double()).float()
     assert torch.equal(out, ref)
     perm = torch.randperm(300, generator=g)
-    assert torch.equal(ttrk._bin_sums(idx[perm], vals[perm], n_bins), out)
+    assert torch.equal(bin_sums(idx[perm], vals[perm], n_bins), out)
