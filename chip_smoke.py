@@ -58,7 +58,14 @@ Phases (each failure is fatal; nothing falls back to the CPU):
      them within tests/test_dist.py's tolerances; then the default hybrid
      system with dist_mesh on both ranks over the arc (the same bits on both,
      ATE, keyframes against the single-process run) and dryrun_multichip(2).
-     Each rank is a spawned process; no scaling is claimed (one card).
+     Each rank is a spawned process; no scaling is claimed (one card);
+ 15. sequences from disk: an EuRoC (752x480 RadTan) and a TUM monoVO
+     (1280x1024 FOV, response, vignette, exposures) fixture, both cropped
+     to 640x480, through tools/run_sequence (sequential: the metrics stream,
+     debug PNGs, the live map over HTTP, the PLY export, the TUM trajectory
+     and its ATE) and tools/eval_baseline (configs 2 and 3, pipelined), held
+     to the JAX package's keyframes and ATE; per-frame decode, correction +
+     remap, host round trip and process_frame times.
 
 Prints a JSON kernel table on the line before the last, and as the last
 line {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -95,6 +102,24 @@ JAX_CPU_LOOP = dict(keyframes=29, valid=326, ate=0.019407264043568895, loops_clo
 JAX_CPU_PHOTOCAL = dict(frames=72, ate_off=0.007532983677308477, valid_off=72, keyframes_off=12,
                         ate_on=0.008458447826464335, valid_on=72, keyframes_on=12,
                         err_est=3.4370534879746852)
+# the same package over phase 15's two fixtures (io/synthetic.write_euroc and
+# write_tum of DATASET_SCENE, 60 frames; sha256 of the raw frames): the
+# sequential default-config system, loop closure on for EuRoC, the TUM one
+# corrected then remapped (tests/test_torch_tools.py::
+# test_dataset_slice_matches_jax_at_sensor_size), keyframed frames and ATE;
+# and eval_baseline's pipelined configs 2 (TUM) and 3 (EuRoC), correction
+# first (C17), their ATE over three reruns (test_run_config_jax_reference_
+# at_sensor_size; the keyframes move with thread timing, C7)
+JAX_CPU_DATASET = {
+    "euroc": dict(sha256="8e684081692b008861c6441e1eee10b2463aba3cb8fbb67726699738a429a04a",
+                  kf_frames=[0, 5, 14, 35, 57], ate=0.002779311708224512),
+    "tum": dict(sha256="f362a6e8c4b146f240680aa6c182981174aeb2df35c83b6bcb07d36059dbdf4c",
+                kf_frames=[0, 10, 25, 34, 44, 55], ate=0.007449207950828182),
+    "config2": dict(ate_min=0.0075609987571244345, ate_max=0.0075609987571244345,
+                    keyframes=7),
+    "config3": dict(ate_min=0.0029498731546208617, ate_max=0.0029498731546208617,
+                    keyframes=5),
+}
 LEVEL_ATOL = 1e-4            # tests/test_pallas.py: 0.25*sum vs mean, f32 order
 G2_RTOL, G2_ATOL = 1e-5, 1e-2
 
@@ -1701,6 +1726,141 @@ def phase_distributed(card):
     return launches + s0["launches"] + s1["launches"]
 
 
+def _correction_gap(root):
+    """max |card - CPU| of the first raw frame's correction and remap."""
+    from hslam_tpu_torch.io.dataset import DatasetReader
+    from hslam_tpu_torch.tools.run_sequence import FrameCorrector
+    rd = DatasetReader(root)
+    raw = torch.from_numpy(rd.get_raw(0).image)
+    out = [FrameCorrector(rd, True, dev)(raw.to(dev)).cpu() for dev in ("cuda", "cpu")]
+    rd.close()
+    return tuple(raw.shape), float((out[0] - out[1]).abs().max())
+
+
+def phase_dataset(card):
+    """Sequences from disk (phase 15): two fixtures rendered through real
+    lenses at their sensors' sizes, (a) EuRoC 752x480 RadTan and (b) TUM
+    monoVO 1280x1024 FOV with a gamma 0.7 response, a vignette and
+    exposures, both cropped to 640x480; (a) through run_sequence's dataset
+    branch with loop closure, the metrics stream, debug PNGs and the live
+    map over HTTP, then the PLY export and the TUM trajectory scored against
+    the ground truth; (b) through run_sequence (corrected, then remapped):
+    the sequential runs, held to the JAX package's keyframes and ATE; (c)
+    eval_baseline.run_config config 2 on (b) and config 3 on (a), pipelined."""
+    import tempfile
+    import urllib.request
+    from hslam_tpu_torch.io import synthetic as syn
+    from hslam_tpu_torch.io.trajectory import associate, evaluate_ate, read_tum, write_tum
+    from hslam_tpu_torch.ops import pyramid as P
+    from hslam_tpu_torch.tools import eval_baseline as EB
+    from hslam_tpu_torch.tools import run_sequence as RS
+    from hslam_tpu_torch.viz.export import window_pointcloud, write_ply
+    t_phase = time.perf_counter()
+    n = syn.DATASET_FRAMES
+    failures, launches = [], 0
+    with tempfile.TemporaryDirectory() as tmp:
+        roots = {k: os.path.join(tmp, k) for k in ("euroc", "tum")}
+        t0 = time.perf_counter()
+        scene = syn.Scene(**syn.DATASET_SCENE)
+        fx = {"euroc": syn.write_euroc(roots["euroc"], scene, n),
+              "tum": syn.write_tum(roots["tum"], scene, n)}
+        log(f"[dataset] {card} | wrote both fixtures in {time.perf_counter() - t0:.2f} s")
+        for k, info in fx.items():
+            cam = info["camera"]
+            same = info["sha256"] == JAX_CPU_DATASET[k]["sha256"]
+            shape, gap = _correction_gap(roots[k])
+            log(f"[dataset] {k}: {n} frames {cam.model} {cam.in_size} -> {cam.out_size}, "
+                f"out_K fx {cam.out_K[0, 0]:.3f} fy {cam.out_K[1, 1]:.3f}; frames as the JAX "
+                f"reference's: {same}; correct+remap of a {shape[1]}x{shape[0]} frame, card "
+                f"against CPU: max |diff| {gap:.3g} (tolerance 1e-4)")
+            if not gap <= 1e-4:
+                failures.append(f"{k}: correct+remap card vs CPU {gap}")
+
+        def gt_file(k):
+            path = os.path.join(tmp, f"gt_{k}.txt")
+            write_tum(path, fx[k]["timestamps"], fx[k]["poses"])
+            return path
+
+        def sequential(k, extra):
+            nonlocal launches
+            out = os.path.join(tmp, f"traj_{k}.txt")
+            P.kernel_launches = 0
+            P.plain_calls = 0
+            res = RS.run(RS.parse_args(["--dataset", roots[k], "--out", out] + extra))
+            slam, ref = res.system, JAX_CPU_DATASET[k]
+            launches += P.kernel_launches
+            gt = gt_file(k)
+            ate = evaluate_ate(gt, out)
+            matched = len(associate(read_tum(gt)[0], read_tum(out)[0]))
+            valid = sum(s.pose_valid for s in slam.shells)
+            kfs = [s.id for s in slam.shells if s.is_kf]
+            bar = max(1.5 * ref["ate"], 0.02)
+            log(f"[dataset] ({'a' if k == 'euroc' else 'b'}) {k} sequential: {card} | "
+                f"{res.n_frames} frames in {res.seconds:.2f} s, fps {res.n_frames / res.seconds:.2f}"
+                f"; per frame {res.times.summary()}")
+            log(f"[dataset] ({'a' if k == 'euroc' else 'b'}) {k}: valid {valid}/{n} lost "
+                f"{slam.is_lost} keyframes {len(kfs)} at {kfs} (JAX CPU {ref['kf_frames']}); "
+                f"gt matched {matched}; ATE {ate:.6f} (bar {bar:.4f}, JAX CPU {ref['ate']:.6f}); "
+                f"loops {slam.n_loops_closed}; pyramid launches {P.kernel_launches} plain "
+                f"{P.plain_calls}")
+            if (valid != n or slam.is_lost or len(kfs) < 3
+                    or abs(len(kfs) - len(ref["kf_frames"])) > 1 or matched < 55
+                    or not ate <= bar):
+                failures.append(f"{k} sequential: valid {valid} keyframes {len(kfs)} "
+                                f"matched {matched} ATE {ate}")
+            if P.kernel_launches != res.n_frames or P.plain_calls != 0:
+                failures.append(f"{k} sequential: pyramid launches {P.kernel_launches} for "
+                                f"{res.n_frames} frames, plain {P.plain_calls}")
+            return res
+
+        # (a) EuRoC through run_sequence with everything on
+        metrics, viz = os.path.join(tmp, "metrics.jsonl"), os.path.join(tmp, "viz")
+        res = sequential("euroc", ["--loop-closure", "--metrics", metrics, "--viz-dir", viz,
+                                   "--view3d", "--view3d-port", "0"])
+        try:
+            with urllib.request.urlopen(res.viewer.url + "/data?from=0", timeout=60) as r:
+                served = json.loads(r.read())
+        finally:
+            res.viewer.stop()
+        counts = {t: sum(x["t"] == t for x in served["records"]) for t in ("frame", "kf", "map")}
+        xyz, col = window_pointcloud(res.system.window, res.system.calib)
+        ply = os.path.join(tmp, "map.ply")
+        write_ply(ply, xyz, col)
+        with open(ply) as f:
+            ply_lines = sum(1 for _ in f)
+        pngs = os.listdir(viz)
+        log(f"[dataset] (a) served over HTTP: {counts} ({len(json.dumps(served))} B); window "
+            f"cloud {len(xyz)} points -> PLY of {ply_lines} lines; debug PNGs {len(pngs)}")
+        if min(counts.values()) == 0 or len(xyz) == 0 or ply_lines != len(xyz) + 10 or not pngs:
+            failures.append(f"(a) viewer records {counts}, cloud {len(xyz)}, PNGs {len(pngs)}")
+        # (b) TUM monoVO, photometrically corrected then remapped
+        sequential("tum", [])
+        # (c) eval_baseline, pipelined
+        for cid, k in ((2, "tum"), (3, "euroc")):
+            P.kernel_launches = 0
+            P.plain_calls = 0
+            r = EB.run_config(roots[k], cid)
+            launches += P.kernel_launches
+            ref = JAX_CPU_DATASET[f"config{cid}"]
+            bar = max(1.5 * ref["ate_max"], 0.02)
+            log(f"[dataset] (c) config {cid} on {k}, pipelined: {card} | {json.dumps(r)}")
+            log(f"[dataset] (c) config {cid}: keyframes {r['n_keyframes']} (JAX CPU "
+                f"{ref['keyframes']}), ATE {r['ate_rmse']} (bar {bar:.4f}, JAX CPU "
+                f"{ref['ate_min']:.6f}..{ref['ate_max']:.6f} over three runs); pyramid launches "
+                f"{P.kernel_launches} plain {P.plain_calls}")
+            if (not r["initialized"] or r["n_valid_poses"] != n or r["n_keyframes"] < 3
+                    or r["gt_matched_frames"] < 55 or r["ate_rmse"] is None
+                    or not r["ate_rmse"] <= bar):
+                failures.append(f"config {cid}: {r}")
+            if P.kernel_launches != n + r["n_track_retries"] or P.plain_calls != 0:
+                failures.append(f"config {cid}: pyramid launches {P.kernel_launches}, plain "
+                                f"{P.plain_calls}")
+    log(f"[dataset] phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError("dataset: " + "; ".join(failures))
+    return launches
+
+
 def main():
     card = phase_environment()
     phase_build()
@@ -1716,6 +1876,7 @@ def main():
     launches += phase_photocal(card)
     launches += phase_checkpoint(card)
     launches += phase_distributed(card)
+    launches += phase_dataset(card)
     log(json.dumps({"kernels": [{
         "name": "pyramid_fused", "route": "cuda",
         "source": "hslam_tpu_torch/csrc/pyramid.cu",

@@ -11,6 +11,14 @@ se3_exp(xi), and the ground-truth camera centre is -R^T t.
 the arc again under exposure flicker, a flight back to the start, and the
 first seconds re-traced. `make_photocal_frames` renders the arc through an
 unmodelled response, vignette and exposure (bench.py's photocal phase).
+
+Datasets on disk: `write_euroc` and `write_tum` render the arc through a
+real lens (any camera.txt model: each raw pixel's ray comes from inverting
+io/calib_io's distortion) at the sensor's size, and lay the frames out as
+EuRoC (`mav0/cam0/data/<ns>.png`, ground truth in
+`mav0/state_groundtruth_estimate0/data.csv`) or TUM monoVO (`images.zip`,
+`times.txt` with exposures, `pcalib.txt`, `vignette.png`,
+`groundtruth.txt`) sequences, which io/dataset.DatasetReader reads.
 """
 from __future__ import annotations
 
@@ -103,9 +111,14 @@ class Scene:
 
     def render(self, R: np.ndarray, t: np.ndarray) -> np.ndarray:
         """Float32 image seen by the camera with worldToCam (R, t)."""
+        return self.render_rays(R, t, self._px, self._py)
+
+    def render_rays(self, R: np.ndarray, t: np.ndarray, px: np.ndarray,
+                    py: np.ndarray) -> np.ndarray:
+        """Float32 intensities along the normalized camera rays (px, py, 1)
+        of a camera with worldToCam (R, t): any lens, see `lens_rays`."""
         Rinv = R.T
         tinv = -Rinv @ t
-        px, py = self._px, self._py
         dz = Rinv[2, 0] * px + Rinv[2, 1] * py + Rinv[2, 2]
         s = (self.depth - tinv[2]) / dz
         X = s * (Rinv[0, 0] * px + Rinv[0, 1] * py + Rinv[0, 2]) + tinv[0]
@@ -174,10 +187,7 @@ def make_photocal_frames(scene: Scene, n_frames: int, gamma: float = 0.7,
     1 + a2 r^2 (r normalized to the image corner, as the calibrator's
     radial basis) and the exposure 1 + 0.35 sin(0.45 i), quantized to uint8
     sensor frames. Returns (frames, exposures, camera centres (N, 3))."""
-    H, W = scene.height, scene.width
-    ys, xs = np.mgrid[0:H, 0:W]
-    r2 = ((xs - scene.cx) ** 2 + (ys - scene.cy) ** 2) / (scene.cx ** 2 + scene.cy ** 2)
-    vignette = 1.0 + vignette_a2 * r2
+    vignette = radial_vignette((scene.height, scene.width), vignette_a2)
     frames: List[np.ndarray] = []
     exps, centres = [], []
     for i in range(n_frames):
@@ -189,3 +199,173 @@ def make_photocal_frames(scene: Scene, n_frames: int, gamma: float = 0.7,
         exps.append(exp)
         centres.append(-R.T @ t)
     return frames, exps, np.stack(centres)
+
+
+# EuRoC MH_01's cam0 (its sensor.yaml): RadTan intrinsics and distortion at
+# 752x480, cropped to 640x480 as the reference's example calibration does
+EUROC_CAMERA = ("RadTan 458.654 457.296 367.215 248.375 -0.28340811 0.07395907 "
+                "0.00019359 1.76187114e-05\n752 480\ncrop\n640 480\n")
+# a TUM monoVO-style FOV camera: normalized intrinsics and the FOV parameter
+# at 1280x1024, cropped to 640x480
+TUM_CAMERA = ("FOV 0.535719308086809 0.669566858850269 0.493248545285398 "
+              "0.500408664348414 0.897966326944875\n1280 1024\ncrop\n640 480\n")
+EUROC_T0_NS = 1403636579763555584      # MH_01's first camera timestamp
+# the plane seen by write_euroc's and write_tum's sensors: a texture wide
+# enough for their rays (up to ~1.9 normalized at the FOV lens's corners),
+# with the blob density of Scene's 640x480 default
+DATASET_SCENE = dict(height=960, width=1280, fx=320.0, n_blobs=1600)
+DATASET_FRAMES = 60
+
+
+def lens_rays(cam) -> Tuple[np.ndarray, np.ndarray]:
+    """The ideal normalized ray (x, y) of every raw pixel of the
+    io/calib_io.CameraModel `cam`: its distortion inverted by Newton steps
+    (a finite-difference 2x2 Jacobian per pixel). Raises if a pixel did
+    not converge to 1e-9."""
+    from .calib_io import _distort
+    w, h = cam.in_size
+    fx, fy, cx, cy = cam.params[:4]
+    d = cam.params[4:]
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    xd, yd = (xs - cx) / fx, (ys - cy) / fy
+    x, y = xd.copy(), yd.copy()
+    eps = 1e-7
+    for _ in range(12):
+        x0, y0 = _distort(cam.model, d, x, y)
+        ax, ay = _distort(cam.model, d, x + eps, y)
+        bx, by = _distort(cam.model, d, x, y + eps)
+        j00, j01 = (ax - x0) / eps, (bx - x0) / eps
+        j10, j11 = (ay - y0) / eps, (by - y0) / eps
+        rx, ry = xd - x0, yd - y0
+        det = j00 * j11 - j01 * j10
+        x = x + (j11 * rx - j01 * ry) / det
+        y = y + (j00 * ry - j10 * rx) / det
+    x0, y0 = _distort(cam.model, d, x, y)
+    err = float(np.max(np.hypot(x0 - xd, y0 - yd)))
+    if not err < 1e-9:
+        raise ArithmeticError(f"lens_rays: distortion not inverted ({err:.3g})")
+    return x, y
+
+
+def _lens_frames(root, camera_txt, scene, n_frames, path, photometric=None):
+    """Write camera.txt, then render the raw frames along `path` on a pool
+    of threads: uint8 sensor images, through `photometric(camera)(i,
+    irradiance) -> raw` when given. Returns (camera, the frames' PNG
+    encodings, poses camToWorld (R, t), sha256 of the frames)."""
+    import hashlib
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from .calib_io import parse_camera_txt
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "camera.txt"), "w") as f:
+        f.write(camera_txt)
+    cam = parse_camera_txt(os.path.join(root, "camera.txt"))
+    px, py = lens_rays(cam)
+    sensor = None if photometric is None else photometric(cam)
+
+    def frame(i):
+        R, t = se3_exp_np(path(i))
+        img = scene.render_rays(R, t, px, py).astype(np.float64)
+        if sensor is not None:
+            img = sensor(i, img)
+        img = np.clip(np.round(img), 0, 255).astype(np.uint8)
+        return img, _png(img), (R.T, -R.T @ t)
+
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        out = list(ex.map(frame, range(n_frames)))
+    digest = hashlib.sha256()
+    for img, _, _ in out:
+        digest.update(img.tobytes())
+    return cam, [x[1] for x in out], [x[2] for x in out], digest.hexdigest()
+
+
+def radial_vignette(shape, a2: float) -> np.ndarray:
+    """1 + a2 r^2 over an (H, W) sensor, r normalized to its corner (the
+    calibrator's radial basis)."""
+    h, w = shape
+    ys, xs = np.mgrid[0:h, 0:w]
+    cx, cy = w / 2 - 0.5, h / 2 - 0.5
+    return 1.0 + a2 * (((xs - cx) ** 2 + (ys - cy) ** 2) / (cx ** 2 + cy ** 2))
+
+
+def _png(img) -> bytes:
+    import cv2
+    ok, buf = cv2.imencode(".png", img)
+    if not ok:
+        raise OSError("cv2.imencode failed")
+    return buf.tobytes()
+
+
+def _quat_xyzw(R) -> np.ndarray:
+    import torch
+
+    from ..utils import lie
+    return lie.rot_to_quat(torch.as_tensor(R, dtype=torch.float64)).numpy()
+
+
+def write_euroc(root: str, scene: Scene, n_frames: int) -> dict:
+    """An EuRoC-layout sequence of the arc: `mav0/cam0/data/<ns>.png` with
+    `mav0/cam0/data.csv`, the camera centres and orientations in
+    `mav0/state_groundtruth_estimate0/data.csv` (ns, p xyz, q wxyz) and
+    `camera.txt`. Returns timestamps (s), camToWorld poses, the camera and
+    the frames' sha256."""
+    import os
+    cam, pngs, poses, sha = _lens_frames(root, EUROC_CAMERA, scene, n_frames,
+                                         lambda i: arc_xi(0.05 * i))
+    data = os.path.join(root, "mav0", "cam0", "data")
+    gt_dir = os.path.join(root, "mav0", "state_groundtruth_estimate0")
+    os.makedirs(data, exist_ok=True)
+    os.makedirs(gt_dir, exist_ok=True)
+    ns = [EUROC_T0_NS + 50_000_000 * i for i in range(n_frames)]      # 20 Hz
+    rows, gt_rows = [], []
+    for k, png, (R, c) in zip(ns, pngs, poses):
+        with open(os.path.join(data, f"{k}.png"), "wb") as f:
+            f.write(png)
+        rows.append(f"{k},{k}.png")
+        q = _quat_xyzw(R)
+        gt_rows.append(",".join([str(k)] + [repr(float(x)) for x in (*c, q[3], q[0], q[1], q[2])]))
+    with open(os.path.join(root, "mav0", "cam0", "data.csv"), "w") as f:
+        f.write("#timestamp [ns],filename\n" + "\n".join(rows) + "\n")
+    with open(os.path.join(gt_dir, "data.csv"), "w") as f:
+        f.write("#timestamp, p_RS_R_x [m], p_RS_R_y [m], p_RS_R_z [m], q_RS_w [], "
+                "q_RS_x [], q_RS_y [], q_RS_z []\n" + "\n".join(gt_rows) + "\n")
+    return dict(timestamps=[k * 1e-9 for k in ns], poses=poses, camera=cam, sha256=sha)
+
+
+def write_tum(root: str, scene: Scene, n_frames: int, camera_txt: str = TUM_CAMERA,
+              dt: float = 0.05, path=lambda i: arc_xi(0.05 * i)) -> dict:
+    """A TUM monoVO-layout sequence (the arc by default), seen through the
+    response G(x) = 255 (x / 255)^0.7, the vignette 1 - 0.45 r^2 (r
+    normalized to the sensor's corner) and the exposures 1 + 0.25 sin(0.3 i):
+    `images.zip` (images/NNNNN.png), `times.txt` (id, seconds, exposure),
+    `pcalib.txt` (G at 0..255), a 16-bit `vignette.png`, `groundtruth.txt`
+    (TUM format) and `camera.txt`. Returns timestamps, exposures, camToWorld
+    poses, the camera and the frames' sha256."""
+    import os
+    import zipfile
+
+    import cv2
+
+    from .trajectory import write_tum as write_tum_file
+    exps = [1.0 + 0.25 * np.sin(0.3 * i) for i in range(n_frames)]
+    vig = []
+
+    def photometric(cam):
+        vig.append(radial_vignette(cam.in_size[::-1], -0.45))
+        return lambda i, irr: 255.0 * np.clip(exps[i] * vig[0] * irr / 255.0, 0.0, 1.0) ** 0.7
+
+    cam, pngs, poses, sha = _lens_frames(root, camera_txt, scene, n_frames, path, photometric)
+    stamps = [i * dt for i in range(n_frames)]
+    with zipfile.ZipFile(os.path.join(root, "images.zip"), "w") as zf:
+        for i, png in enumerate(pngs):
+            zf.writestr(f"images/{i:05d}.png", png)
+    with open(os.path.join(root, "times.txt"), "w") as f:
+        f.writelines(f"{i:05d} {stamps[i]:.6f} {exps[i]:.6f}\n" for i in range(n_frames))
+    with open(os.path.join(root, "pcalib.txt"), "w") as f:
+        f.write(" ".join(f"{255.0 * (x / 255.0) ** 0.7!r}" for x in range(256)) + "\n")
+    if not cv2.imwrite(os.path.join(root, "vignette.png"),
+                       np.round(65535.0 * vig[0]).astype(np.uint16)):
+        raise OSError("cv2.imwrite failed for vignette.png")
+    write_tum_file(os.path.join(root, "groundtruth.txt"), stamps, poses)
+    return dict(timestamps=stamps, exposures=exps, poses=poses, camera=cam, sha256=sha)
