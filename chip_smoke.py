@@ -61,11 +61,21 @@ Phases (each failure is fatal; nothing falls back to the CPU):
      Each rank is a spawned process; no scaling is claimed (one card);
  15. sequences from disk: an EuRoC (752x480 RadTan) and a TUM monoVO
      (1280x1024 FOV, response, vignette, exposures) fixture, both cropped
-     to 640x480, through tools/run_sequence (sequential: the metrics stream,
+     to 640x480; every frame of each through the prefetching loader
+     (io/native_loader) against FrameCorrector on the card; then
+     tools/run_sequence through the loader (sequential: the metrics stream,
      debug PNGs, the live map over HTTP, the PLY export, the TUM trajectory
-     and its ATE) and tools/eval_baseline (configs 2 and 3, pipelined), held
-     to the JAX package's keyframes and ATE; per-frame decode, correction +
-     remap, host round trip and process_frame times.
+     and its ATE), once more on EuRoC with the same flags and
+     --no-prefetch, and
+     tools/eval_baseline (configs 2 and 3, pipelined), held to the JAX
+     package's keyframes and ATE; per frame the loader's wait, or the
+     inline decode, correction + remap and host round trip, and
+     process_frame;
+ 16. the tools: drive_synthetic, profile_kf at 640x480 with a profiler
+     trace, train_vocab on generated scenes loaded into SLAMSystem,
+     make_synthetic_dataset then run_sequence on it, and loop_debug over
+     phase 11's 326 frames through the pipelined entry with the
+     loop-closure worker live, held to the JAX package's pipelined outcome.
 
 Prints a JSON kernel table on the line before the last, and as the last
 line {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -120,6 +130,22 @@ JAX_CPU_DATASET = {
     "config3": dict(ate_min=0.0029498731546208617, ate_max=0.0029498731546208617,
                     keyframes=5),
 }
+# the same package over phase 16's loop_debug: io/synthetic's arc (60 frames)
+# and loop sequence (326 frames in all) through the pipelined entry with the
+# mapping thread and the loop-closure worker, three reruns (tests/
+# test_torch_scripts.py::test_loop_debug_jax_reference; keyframes move with
+# thread timing, C7): 26, 32, 34 keyframes, loops closed 2, 3, 0 and
+# verified below significance 9, 9, 21; the loops that fire leave the ATE
+# far above the sequential entry's (phase 11: 0.0194)
+JAX_CPU_LOOP_DEBUG = dict(valid=326, ate_min=0.12712647885699854, ate_max=0.16234654687324615,
+                          keyframes=(26, 34), loops_closed=(0, 3), verified_min=11)
+# the same package over phase 16's make_synthetic_dataset (its defaults,
+# 320x240, 60 frames, rendered on the CPU; sha256 of the frames), sequential,
+# Config(), loop closure on, corrected then remapped (tests/
+# test_torch_scripts.py::test_synthetic_dataset_run_sequence_jax_reference;
+# the port on the CPU: [0, 9, 26, 35, 45, 59], ATE 0.0728)
+JAX_CPU_SYNTH = dict(sha256="2a82e690b36f3033bd72799ce4809257e1a3b4921119421c67688f9e727b5006",
+                     kf_frames=[0, 10, 27, 35, 44, 59], ate=0.07577175173288406)
 LEVEL_ATOL = 1e-4            # tests/test_pallas.py: 0.25*sum vs mean, f32 order
 G2_RTOL, G2_ATOL = 1e-5, 1e-2
 
@@ -1726,15 +1752,32 @@ def phase_distributed(card):
     return launches + s0["launches"] + s1["launches"]
 
 
-def _correction_gap(root):
-    """max |card - CPU| of the first raw frame's correction and remap."""
+LOADER_RTOL, LOADER_ATOL = 1e-5, 1e-3   # tests/test_native_loader.py:117,150
+
+
+def _correction_gaps(root):
+    """The first raw frame's correction and remap, card against CPU (max
+    |diff|); then every frame through the prefetching loader (host, two
+    threads) against FrameCorrector on the card: max |diff| and whether all
+    are within LOADER_RTOL, LOADER_ATOL."""
     from hslam_tpu_torch.io.dataset import DatasetReader
-    from hslam_tpu_torch.tools.run_sequence import FrameCorrector
+    from hslam_tpu_torch.tools.run_sequence import FrameCorrector, open_loader
     rd = DatasetReader(root)
-    raw = torch.from_numpy(rd.get_raw(0).image)
-    out = [FrameCorrector(rd, True, dev)(raw.to(dev)).cpu() for dev in ("cuda", "cpu")]
-    rd.close()
-    return tuple(raw.shape), float((out[0] - out[1]).abs().max())
+    loader = open_loader(rd, True)
+    try:
+        raw = torch.from_numpy(rd.get_raw(0).image)
+        card = FrameCorrector(rd, True, "cuda")
+        out = [FrameCorrector(rd, True, dev)(raw.to(dev)).cpu() for dev in ("cuda", "cpu")]
+        gap, ok = 0.0, True
+        for i in range(len(rd)):
+            got = torch.from_numpy(loader.get(i))
+            want = card(torch.from_numpy(rd.get_raw(i).image).cuda()).cpu()
+            gap = max(gap, float((got - want).abs().max()))
+            ok &= bool(torch.allclose(got, want, rtol=LOADER_RTOL, atol=LOADER_ATOL))
+    finally:
+        loader.close()
+        rd.close()
+    return tuple(raw.shape), float((out[0] - out[1]).abs().max()), gap, ok
 
 
 def phase_dataset(card):
@@ -1768,13 +1811,17 @@ def phase_dataset(card):
         for k, info in fx.items():
             cam = info["camera"]
             same = info["sha256"] == JAX_CPU_DATASET[k]["sha256"]
-            shape, gap = _correction_gap(roots[k])
+            shape, gap, lgap, lok = _correction_gaps(roots[k])
             log(f"[dataset] {k}: {n} frames {cam.model} {cam.in_size} -> {cam.out_size}, "
                 f"out_K fx {cam.out_K[0, 0]:.3f} fy {cam.out_K[1, 1]:.3f}; frames as the JAX "
                 f"reference's: {same}; correct+remap of a {shape[1]}x{shape[0]} frame, card "
-                f"against CPU: max |diff| {gap:.3g} (tolerance 1e-4)")
+                f"against CPU: max |diff| {gap:.3g} (tolerance 1e-4); the loader's {n} frames "
+                f"against FrameCorrector on the card: max |diff| {lgap:.3g} (rtol "
+                f"{LOADER_RTOL}, atol {LOADER_ATOL}: {'within' if lok else 'OUTSIDE'})")
             if not gap <= 1e-4:
                 failures.append(f"{k}: correct+remap card vs CPU {gap}")
+            if not lok:
+                failures.append(f"{k}: loader frames vs FrameCorrector on the card {lgap}")
 
         def gt_file(k):
             path = os.path.join(tmp, f"gt_{k}.txt")
@@ -1795,10 +1842,11 @@ def phase_dataset(card):
             valid = sum(s.pose_valid for s in slam.shells)
             kfs = [s.id for s in slam.shells if s.is_kf]
             bar = max(1.5 * ref["ate"], 0.02)
-            log(f"[dataset] ({'a' if k == 'euroc' else 'b'}) {k} sequential: {card} | "
+            tag = ("a" if k == "euroc" else "b") + (", inline" if "--no-prefetch" in extra else "")
+            log(f"[dataset] ({tag}) {k} sequential: {card} | "
                 f"{res.n_frames} frames in {res.seconds:.2f} s, fps {res.n_frames / res.seconds:.2f}"
                 f"; per frame {res.times.summary()}")
-            log(f"[dataset] ({'a' if k == 'euroc' else 'b'}) {k}: valid {valid}/{n} lost "
+            log(f"[dataset] ({tag}) {k}: valid {valid}/{n} lost "
                 f"{slam.is_lost} keyframes {len(kfs)} at {kfs} (JAX CPU {ref['kf_frames']}); "
                 f"gt matched {matched}; ATE {ate:.6f} (bar {bar:.4f}, JAX CPU {ref['ate']:.6f}); "
                 f"loops {slam.n_loops_closed}; pyramid launches {P.kernel_launches} plain "
@@ -1835,6 +1883,21 @@ def phase_dataset(card):
             failures.append(f"(a) viewer records {counts}, cloud {len(xyz)}, PNGs {len(pngs)}")
         # (b) TUM monoVO, photometrically corrected then remapped
         sequential("tum", [])
+        # (a) once more, with the same flags, on the inline path (decode
+        # here, correction on the card, the round trip): its per-frame times
+        # and fps beside the loader's
+        inline = sequential("euroc", [
+            "--loop-closure", "--metrics", os.path.join(tmp, "metrics_inline.jsonl"),
+            "--viz-dir", os.path.join(tmp, "viz_inline"), "--view3d", "--view3d-port", "0",
+            "--no-prefetch"])
+        inline.viewer.stop()
+        med = lambda xs: float(np.median(xs))  # noqa: E731
+        t_a, t_i = res.times, inline.times
+        log(f"[dataset] (a) euroc, loader against inline: {card} | fps "
+            f"{res.n_frames / res.seconds:.2f} against {inline.n_frames / inline.seconds:.2f}; "
+            f"p50 ms the loader's wait {med(t_a.wait):.2f} against decode + correct+remap + "
+            f"round trip {med(t_i.decode) + med(t_i.correct) + med(t_i.round_trip):.2f}; "
+            f"process_frame {med(t_a.process):.2f} against {med(t_i.process):.2f}")
         # (c) eval_baseline, pipelined
         for cid, k in ((2, "tum"), (3, "euroc")):
             P.kernel_launches = 0
@@ -1861,22 +1924,200 @@ def phase_dataset(card):
     return launches
 
 
+def phase_tools(card):
+    """The port's counterparts of scripts/ (phase 16), each as a user calls
+    it, on the card: (a) drive_synthetic's three checks; (b) profile_kf at
+    640x480 with a torch.profiler trace; (c) train_vocab --diverse 4 --views
+    3 --k 8 --levels 2 at 480x640, the file loaded into SLAMSystem and a
+    frame's descriptors quantized; (d) make_synthetic_dataset at its
+    defaults on the card, against the same tool on the CPU, then
+    run_sequence --loop-closure through the loader on the CPU's frames,
+    held to the JAX package's ATE on them (JAX_CPU_SYNTH); (e)
+    loop_debug over phase 11's 326 frames through the pipelined entry with
+    the mapping thread and the loop-closure worker, held to the JAX
+    package's pipelined outcome (JAX_CPU_LOOP_DEBUG). Pyramid launches are
+    counted per tool, plain calls must stay 0."""
+    import hashlib
+    import tempfile
+    from pathlib import Path
+
+    import cv2
+
+    from hslam_tpu_torch.io.trajectory import evaluate_ate
+    from hslam_tpu_torch.models.system import SLAMSystem
+    from hslam_tpu_torch.ops import bow as bow_ops
+    from hslam_tpu_torch.ops import features as ft
+    from hslam_tpu_torch.ops import pyramid as P
+    from hslam_tpu_torch.tools import drive_synthetic as DS
+    from hslam_tpu_torch.tools import loop_debug as LD
+    from hslam_tpu_torch.tools import make_synthetic_dataset as MSD
+    from hslam_tpu_torch.tools import profile_kf as PK
+    from hslam_tpu_torch.tools import run_sequence as RS
+    from hslam_tpu_torch.tools import train_vocab as TV
+    t_phase = time.perf_counter()
+    failures, launches, secs = [], 0, {}
+
+    def counted(name, fn, want_min):
+        """fn() with the pyramid counts set to 0 just before it and read
+        just after; launches below `want_min` or any plain call fail."""
+        nonlocal launches
+        torch.cuda.synchronize()
+        P.kernel_launches = 0
+        P.plain_calls = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        launches += P.kernel_launches
+        log(f"[tools] ({name}) {secs[name]:.1f} s; pyramid launches {P.kernel_launches} "
+            f"plain {P.plain_calls}")
+        if P.kernel_launches < want_min or P.plain_calls != 0:
+            failures.append(f"{name}: pyramid launches {P.kernel_launches} (at least "
+                            f"{want_min}), plain {P.plain_calls}")
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) drive_synthetic
+        d = counted("a", lambda: DS.run("cuda"), 3)
+        log(f"[tools] (a) drive_synthetic: {card} | pose error {d['err0']:.4f} -> "
+            f"{d['err1']:.6f}, BA rmse {d['ba_rmse']:.4f}, track {d['track_ms']:.1f} ms, "
+            f"BA {d['ba_ms']:.1f} ms")
+
+        # (b) profile_kf, 640x480, bench.py's capacities, a trace
+        def profile():
+            slam, frames = PK.warm_system(26, "cuda", PK.BENCH_CFG)
+            try:
+                log(f"[tools] (b) profile_kf warmed: {slam.next_kf_id} keyframes, "
+                    f"initialized={slam.initialized}")
+                return PK.profile(slam, frames[-1], 10, os.path.join(tmp, "trace"))
+            finally:
+                slam.close()
+        prof = counted("b", profile, 26)
+        log(f"[tools] (b) profile_kf: {card} | median of 10, ms (device span, host):")
+        for name, dev_ms, host_ms in prof["rows"]:
+            log(f"[tools] (b)   {name:40s} {dev_ms:10.3f} {host_ms:10.3f}")
+        size = os.path.getsize(prof["trace_file"]) if prof["trace_file"] else 0
+        log(f"[tools] (b) state unchanged: {prof['state_unchanged']}; trace {size} B")
+        if (len(prof["rows"]) != 8 or not prof["state_unchanged"] or size == 0
+                or not all(r[1] is not None and np.isfinite(r[1]) and r[1] > 0
+                           and np.isfinite(r[2]) and r[2] > 0 for r in prof["rows"])):
+            failures.append(f"profile_kf: {prof}")
+
+        # (c) train_vocab on the card, then loaded by the system
+        vocab = os.path.join(tmp, "vocab.npz")
+        voc = counted("c", lambda: TV.run(TV.parse_args(
+            ["--diverse", "4", "--views", "3", "--k", "8", "--levels", "2", "--out", vocab])), 0)
+        slam = SLAMSystem(320.0, 320.0, 319.5, 239.5, 640, 480, _hybrid_cfg(), vocab_path=vocab)
+        try:
+            img = next(TV.diverse_scene_images(1, 1, seed=9, device="cuda"))[1]
+            _, _, _, _, desc, valid = ft.extract_multiscale(
+                torch.as_tensor(img, dtype=torch.float32, device="cuda"), 4, 512, 10.0)
+            words = bow_ops.quantize(slam.loop_closer.vocab, desc, valid)[valid]
+            n_w = slam.loop_closer.vocab.n_words
+        finally:
+            slam.close()
+        in_range = bool(((words >= 0) & (words < n_w)).all())
+        log(f"[tools] (c) train_vocab: {card} | {voc.n_words} words, {int((voc.idf > 0).sum())} "
+            f"observed; loaded by SLAMSystem ({n_w} words): {int(valid.sum())} descriptors of a "
+            f"480x640 view quantized to {len(torch.unique(words))} distinct words")
+        if voc.n_words != 64 or n_w != 64 or not in_range or int(valid.sum()) == 0:
+            failures.append("train_vocab: the vocabulary did not load or quantize")
+
+        # (d) make_synthetic_dataset at its defaults on the card, and on the
+        # CPU (the frames of the JAX record: the card's float32 sin and pow
+        # round a few pixels the other way); run_sequence on the latter
+        on_card, root = os.path.join(tmp, "synth_card"), os.path.join(tmp, "synth")
+        out = os.path.join(tmp, "synth.txt")
+        t0 = time.perf_counter()
+        MSD.write_dataset(on_card)
+        t_card = time.perf_counter() - t0
+        MSD.write_dataset(root, device="cpu")
+        digest, img_gap, n_diff = hashlib.sha256(), 0, 0
+        for i in range(60):
+            a, b = (cv2.imread(os.path.join(r, "images", f"{i:05d}.png"),
+                               cv2.IMREAD_GRAYSCALE) for r in (root, on_card))
+            digest.update(a.tobytes())
+            img_gap = max(img_gap, int(np.abs(a.astype(int) - b.astype(int)).max()))
+            n_diff += int((a != b).sum())
+        same_files = all(
+            Path(root, f).read_bytes() == Path(on_card, f).read_bytes()
+            for f in ("camera.txt", "pcalib.txt", "times.txt", "groundtruth.txt", "vignette.png"))
+        ref = JAX_CPU_SYNTH
+        same = digest.hexdigest() == ref["sha256"]
+        log(f"[tools] (d) make_synthetic_dataset: {card} | 60 frames 320x240 in {t_card:.2f} s; "
+            f"against the CPU's: text files, vignette and ground truth identical {same_files}, "
+            f"images within {img_gap} level ({n_diff} pixels differ); the CPU's frames as the "
+            f"JAX reference's: {same}")
+        if not same_files or img_gap > 1 or not same:
+            failures.append(f"make_synthetic_dataset: files {same_files}, image gap {img_gap}, "
+                            f"frames as the record's {same}")
+        res = counted("d", lambda: RS.run(RS.parse_args(
+            ["--dataset", root, "--out", out, "--loop-closure"])), 60)
+        slam = res.system
+        kfs = [s.id for s in slam.shells if s.is_kf]
+        valid_n = sum(s.pose_valid for s in slam.shells)
+        ate = evaluate_ate(os.path.join(root, "groundtruth.txt"), out)
+        bar = max(1.5 * ref["ate"], 0.02)
+        log(f"[tools] (d) run_sequence on it: {res.n_frames} frames in {res.seconds:.2f} s, fps "
+            f"{res.n_frames / res.seconds:.2f}; per frame {res.times.summary()}")
+        log(f"[tools] (d) valid {valid_n}/60 lost {slam.is_lost} keyframes {len(kfs)} at {kfs} "
+            f"(JAX CPU {ref['kf_frames']}); ATE {ate:.6f} (bar {bar:.4f}, JAX CPU "
+            f"{ref['ate']:.6f})")
+        # the keyframe count is reported, not held to the JAX package's: on
+        # this sequence +-1 on 10 random pixels a frame moves the port's CPU
+        # run from 6 keyframes (ATE 0.073) to 13 (0.050) or 3 (0.032)
+        if valid_n != 60 or slam.is_lost or len(kfs) < 3 or not ate <= bar:
+            failures.append(f"synthetic dataset: valid {valid_n} keyframes {kfs} ATE {ate}")
+
+    # (e) loop_debug over phase 11's sequence, pipelined
+    ld = counted("e", lambda: LD.run(n_arc=SEQ_FRAMES), 326)
+    ref = JAX_CPU_LOOP_DEBUG
+    bar = max(1.5 * ref["ate_max"], 0.02)
+    verified = ld["loops_closed"] + ld["verified_insignificant"]
+    log(f"[tools] (e) loop_debug: {card} | {ld['frames']} frames pipelined: arc fps "
+        f"{ld['fps_arc']:.2f}, loop fps {ld['fps_loop']:.2f}; keyframes {ld['keyframes']} "
+        f"(JAX CPU {ref['keyframes'][0]}-{ref['keyframes'][1]}), valid {ld['valid']} "
+        f"(JAX CPU {ref['valid']}), ATE {ld['ate']:.6f} (bar {bar:.4f}, JAX CPU "
+        f"{ref['ate_min']:.6f}..{ref['ate_max']:.6f}); loops closed {ld['loops_closed']} + "
+        f"verified below significance {ld['verified_insignificant']} (JAX CPU at least "
+        f"{ref['verified_min']} in every rerun); relocs {ld['relocs']}, retries "
+        f"{ld['track_retries']}; lc_detect_ms p50 {ld['lc_detect_p50']:.1f} p95 "
+        f"{ld['lc_detect_p95']:.1f} (n={ld['n_detect']}); entries {ld['lc_entries']}, "
+        f"run_scale {ld['run_scale']:.4f}; gates {ld['gates']}")
+    if ld["valid"] != ld["frames"] or ld["frames"] != 326 or ld["lost"] or not ld["ate"] <= bar:
+        failures.append(f"loop_debug: valid {ld['valid']}/{ld['frames']} ATE {ld['ate']}")
+    if ref["verified_min"] >= 1 and verified < 1:
+        failures.append("loop_debug: no revisit verified, every JAX rerun verifies one")
+    log(f"[tools] seconds by tool {json.dumps({k: round(v, 1) for k, v in secs.items()})}; "
+        f"phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError("tools: " + "; ".join(failures))
+    return launches
+
+
 def main():
+    t_start = time.perf_counter()
     card = phase_environment()
-    phase_build()
-    kernel = phase_kernel()
-    phase_parity()
-    launches = phase_main_path(card)
-    phase_hybrid_parity()
-    launches += phase_pipelined(card)
-    launches += phase_relocalization(card)
-    phase_loop_modules(card)
-    phase_loop_closer(card)
-    launches += phase_loop_sequence(card)
-    launches += phase_photocal(card)
-    launches += phase_checkpoint(card)
-    launches += phase_distributed(card)
-    launches += phase_dataset(card)
+    # (phase, takes the card's name, returns the pyramid launches of its runs)
+    phases = [(phase_build, False, False), (phase_kernel, False, False),
+              (phase_parity, False, False), (phase_main_path, True, True),
+              (phase_hybrid_parity, False, False), (phase_pipelined, True, True),
+              (phase_relocalization, True, True), (phase_loop_modules, True, False),
+              (phase_loop_closer, True, False), (phase_loop_sequence, True, True),
+              (phase_photocal, True, True), (phase_checkpoint, True, True),
+              (phase_distributed, True, True), (phase_dataset, True, True),
+              (phase_tools, True, True)]
+    launches, secs = 0, {"environment": time.perf_counter() - t_start}
+    for fn, takes_card, counts in phases:
+        t0 = time.perf_counter()
+        out = fn(card) if takes_card else fn()
+        secs[fn.__name__[len("phase_"):]] = time.perf_counter() - t0
+        if fn is phase_kernel:
+            kernel = out
+        elif counts:
+            launches += out
+    log(f"[time] seconds by phase (1-16) {json.dumps({k: round(v, 1) for k, v in secs.items()})}"
+        f"; whole script {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{
         "name": "pyramid_fused", "route": "cuda",
         "source": "hslam_tpu_torch/csrc/pyramid.cu",

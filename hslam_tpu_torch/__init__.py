@@ -18,20 +18,30 @@ sharded solvers of `parallel/` on torch.distributed (`dist_mesh`; one
 process per rank, see parallel/__init__.py). The pyramid is a hand-written
 CUDA kernel (csrc/pyramid.cu); everything else is plain torch.
 
-Sequences from disk, each module beside its JAX counterpart:
+Sequences from disk and the tools, each module beside its JAX counterpart:
   io/calib_io.py     hslam_tpu/io/calib_io.py (a numpy copy: lens models,
                      remap tables, camera.txt / OpenCV YAML, stereo rectify)
   io/dataset.py      hslam_tpu/io/dataset.py (a copy: TUM / EuRoC / KITTI
                      layouts, zipped or not; cv2 decode)
+  io/native_loader.py  hslam_tpu/io/native_loader.py (the prefetching decode
+                     and correction pool; Python threads, not the C++ library)
   io/trajectory.py   hslam_tpu/io/trajectory.py (TUM files, association, ATE)
   utils/robust.py    hslam_tpu/utils/robust.py (Huber weights on tensors)
   viz/export.py      hslam_tpu/viz/export.py (window point cloud, PLY)
   viz/debug_draw.py  hslam_tpu/viz/debug_draw.py (cv2 overlays)
   viz/view3d.py      hslam_tpu/viz/view3d.py (the live-map HTTP server)
-  tools/run_sequence.py   scripts/run_sequence.py
-  tools/eval_baseline.py  scripts/eval_baseline.py
-Not ported yet: hslam_tpu/io/native_loader.py (the C++ prefetch loader);
-the tools decode with io/dataset.DatasetReader.get_raw.
+  tools/run_sequence.py            scripts/run_sequence.py
+  tools/eval_baseline.py           scripts/eval_baseline.py
+  tools/profile_kf.py              scripts/profile_kf.py
+  tools/train_vocab.py             scripts/train_vocab.py
+  tools/make_synthetic_dataset.py  scripts/make_synthetic_dataset.py
+  tools/drive_synthetic.py         scripts/drive_synthetic.py
+  tools/loop_debug.py              scripts/bench_loop_debug.py
+Each tool runs as `python -m hslam_tpu_torch.tools.<name>`, on the card
+unless `--device cpu` is given. Not ported, being TPU machinery: the compile
+cache, the precompile thread and `wait_compiles`, `LoopCloser.warmup` and
+utils/devtime.py (CUDA events time the card); bench.py, the JAX package's
+benchmark, is not ported either.
 """
 
 import torch as _torch

@@ -26,6 +26,7 @@ torch.Generator seeded with the same integers.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 import sys
@@ -128,6 +129,9 @@ class LoopCloser:
         # correction was refused only by the significance gate: a low-drift
         # run rightly closes 0 loops, and this shows the chain was live
         self.n_verified_insignificant = 0
+        # the gate that ended each detect() call, counted by name ("fired"
+        # when a loop came out); HSLAM_LC_DEBUG=1 prints each decision
+        self.gate_counts: collections.Counter = collections.Counter()
         # matrix-free relaxations edge-sharded over this mesh when one is set
         self.dist_mesh = dist_mesh
         # graphs up to this many nodes relax with the dense GN solver;
@@ -168,6 +172,11 @@ class LoopCloser:
             kp_depth_ok=None if kp_depth_ok is None else _np(kp_depth_ok),
         ))
 
+    def _gate(self, name: str, msg: Optional[str] = None) -> None:
+        self.gate_counts[name] += 1
+        if msg is not None:
+            _dbg(msg)
+
     def _reset_streak(self):
         self._prev_cand_kf = None
         self._consist_count = 0
@@ -193,6 +202,7 @@ class LoopCloser:
         # entry and 1.0 against another empty one under the L1 metric:
         # never let those drive candidate selection
         if float(np.abs(q.bow).sum()) < 1e-6:
+            self._gate("empty query")
             self._reset_streak()
             return None
         cands = [
@@ -204,6 +214,7 @@ class LoopCloser:
         if not cands:
             # a streak from much earlier keyframes must not survive to let
             # a later one-shot candidate bypass the consistency gate
+            self._gate("no candidate")
             self._reset_streak()
             return None
         scores = self._score(q.bow, [self.entries[i].bow for i in cands])
@@ -219,7 +230,8 @@ class LoopCloser:
             _dbg(f"q{q.kf_id}: qvalid {int(np.sum(q.valid))} cands " + " ".join(
                 f"kf{self.entries[cands[i]].kf_id}:{scores[i]:.3f}" for i in top))
         if scores[best] < max(min_ref, 0.015):
-            _dbg(f"q{q.kf_id}: score {scores[best]:.3f} < {max(min_ref, 0.015):.3f}")
+            self._gate("score", f"q{q.kf_id}: score {scores[best]:.3f} < "
+                                f"{max(min_ref, 0.015):.3f}")
             self._reset_streak()
             return None
         cand = self.entries[cands[best]]
@@ -232,8 +244,8 @@ class LoopCloser:
             self._consist_count = 1
         self._prev_cand_kf = cand.kf_id
         if self._consist_count < self.consistency_th:
-            _dbg(f"q{q.kf_id}: cand kf{cand.kf_id} consistency "
-                 f"{self._consist_count}/{self.consistency_th}")
+            self._gate("consistency", f"q{q.kf_id}: cand kf{cand.kf_id} consistency "
+                                      f"{self._consist_count}/{self.consistency_th}")
             return None
 
         # geometric verification: descriptor match (candidate -> query)
@@ -242,12 +254,14 @@ class LoopCloser:
             valid_a=self._dev(cand.valid, torch.bool), valid_b=self._dev(q.valid, torch.bool))
         idx_np, ok_np = _np(idx_q), _np(ok)                       # host sync
         if ok_np.sum() < self.min_inliers:
-            _dbg(f"q{q.kf_id}: kf{cand.kf_id} matches {int(ok_np.sum())} < {self.min_inliers}")
+            self._gate("matches", f"q{q.kf_id}: kf{cand.kf_id} matches {int(ok_np.sum())} < "
+                                  f"{self.min_inliers}")
             return None
 
         # metric relative pose via PnP: lift the candidate's keypoints to 3D
         # with its stored inverse depths, observe them in the query frame
         if cand.kp_idepth is None:
+            self._gate("depths")
             return None
         fx, fy = K[0, 0], K[1, 1]
         cx, cy = K[0, 2], K[1, 2]
@@ -260,6 +274,7 @@ class LoopCloser:
         valid = ok_np & (cand.kp_depth_ok if cand.kp_depth_ok is not None
                          else np.ones_like(ok_np))
         if valid.sum() < self.min_inliers:
+            self._gate("depths")
             return None
         s_fw, s_rv = samples if samples is not None else (None, None)
         # the current (drifted) estimate of the relative pose seeds the
@@ -267,7 +282,7 @@ class LoopCloser:
         T_init = np.linalg.inv(q.cam_to_world) @ cand.cam_to_world
         res = self._pnp(lift(cand), obs, valid, K, T_init, q.kf_id, s_fw)
         if not bool(res.ok):                                      # host sync
-            _dbg(f"q{q.kf_id}: kf{cand.kf_id} forward PnP failed")
+            self._gate("forward PnP", f"q{q.kf_id}: kf{cand.kf_id} forward PnP failed")
             return None
         n_inl = int(res.inliers.sum())
         T_fw = _se3(_np(res.R), _np(res.t))
@@ -284,6 +299,7 @@ class LoopCloser:
                         else np.ones(len(q.kp_u), bool))
             valid_rev = ok_np & dep_ok_q[idx_np]
             if valid_rev.sum() < self.min_inliers:
+                self._gate("depths")
                 return None
             # seeded with the inverse of the FORWARD solution: the check asks
             # "does T_fw invert cleanly?", and a drifted seed fails the
@@ -291,14 +307,15 @@ class LoopCloser:
             res_rev = self._pnp(lift(q)[idx_np], np.stack([cand.kp_u, cand.kp_v], -1),
                                 valid_rev, K, np.linalg.inv(T_fw), q.kf_id + 7777, s_rv)
             if not bool(res_rev.ok):                              # host sync
-                _dbg(f"q{q.kf_id}: kf{cand.kf_id} reverse PnP failed")
+                self._gate("reverse PnP", f"q{q.kf_id}: kf{cand.kf_id} reverse PnP failed")
                 return None
             err_t, err_r = _pose_error(_se3(_np(res_rev.R), _np(res_rev.t)) @ T_fw)
             # translation tolerance in run-scale units; rotation is scale-free
             tol_t = self.mutual_tol_rel * self.run_scale()
             if err_t > tol_t or err_r > self.mutual_rot_tol:
-                _dbg(f"q{q.kf_id}: kf{cand.kf_id} mutual check failed "
-                     f"err_t={err_t:.4f} (tol {tol_t:.4f}) err_r={err_r:.4f}")
+                self._gate("mutual check", f"q{q.kf_id}: kf{cand.kf_id} mutual check failed "
+                                           f"err_t={err_t:.4f} (tol {tol_t:.4f}) "
+                                           f"err_r={err_r:.4f}")
                 return None
             _dbg(f"q{q.kf_id}: kf{cand.kf_id} mutual ok err_t={err_t:.4f} err_r={err_r:.4f}")
 
@@ -313,11 +330,13 @@ class LoopCloser:
                 # verified, but below the noise floor: counted, so that
                 # "live, no correction warranted" and "dead" can be told apart
                 self.n_verified_insignificant += 1
-                _dbg(f"q{q.kf_id}: kf{cand.kf_id} below significance "
-                     f"err_t={err_t:.4f} (min {min_t:.4f}) err_r={err_r:.4f}")
+                self._gate("significance", f"q{q.kf_id}: kf{cand.kf_id} below significance "
+                                           f"err_t={err_t:.4f} (min {min_t:.4f}) "
+                                           f"err_r={err_r:.4f}")
                 return None
 
         # a loop fires: the next one needs fresh consecutive agreement
+        self._gate("fired")
         self._reset_streak()
         return LoopResult(query_kf=q.kf_id, match_kf=cand.kf_id,
                           rel_R=T_fw[:3, :3].copy(), rel_t=T_fw[:3, 3].copy(),

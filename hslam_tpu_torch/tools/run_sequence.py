@@ -6,15 +6,17 @@ Usage:
     python -m hslam_tpu_torch.tools.run_sequence --dataset /path/to/seq [--out traj.txt]
 
 A dataset is any layout io/dataset.DatasetReader reads (TUM monoVO, EuRoC,
-KITTI; directories or images.zip) with a camera.txt / camera.yaml. Per frame,
-as the JAX script: decode on the host (cv2), then on the device the
-photometric correction (pcalib.txt's inverse response, vignette.png) and the
-geometric remap, then `SLAMSystem.process_frame`, which takes the frame as a
-numpy array (so the corrected frame makes a round trip to the host). With
---online-calib the frames stay raw and are only remapped: the system fits
-response, vignette and exposures itself. Differences from the JAX script:
-  * frames are always decoded by DatasetReader.get_raw: the C++ prefetch
-    loader (hslam_tpu/io/native_loader.py) is not ported;
+KITTI; directories or images.zip) with a camera.txt / camera.yaml. Frames
+come through the prefetching loader (io/native_loader, as the JAX script's
+native branch): two worker threads decode each frame eight ahead of the
+system and correct it on the host, the inverse response and vignette
+(pcalib.txt, vignette.png) and then the geometric remap, and the corrected
+frame goes to `SLAMSystem.process_frame`. With --online-calib the frames
+are only remapped: the system fits response, vignette and exposures itself.
+--no-prefetch takes the JAX script's path without its native library:
+decode on the calling thread, upload, the correction on the device
+(`FrameCorrector`), the frame back to the host. Differences from the JAX
+script:
   * --loop-closure switches loop closure in both branches (the JAX script's
     dataset branch leaves it on whatever the flag says);
   * --synthetic renders io/synthetic.py's textured plane (numpy draws): the
@@ -33,6 +35,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..io import native_loader
 from ..io.dataset import DatasetReader
 from ..io.synthetic import Scene, make_sequence
 from ..io.trajectory import ate_rmse, write_tum
@@ -111,21 +114,24 @@ class FrameCorrector:
 
 @dataclasses.dataclass
 class FrameTimes:
-    """Per processed frame, in ms: decode (cv2, host clock), correct (the
-    photometric correction and the remap: CUDA events on the card, the host
-    clock on the CPU), round_trip (the raw frame up, the corrected frame
-    back, host clock) and process (process_frame, host clock to a
-    synchronised device)."""
+    """Per processed frame, in ms. Through the loader: wait (the consumer
+    blocked in `get`, host clock). Inline (--no-prefetch): decode (cv2,
+    host clock), correct (the photometric correction and the remap: CUDA
+    events on the card, the host clock on the CPU) and round_trip (the raw
+    frame up, the corrected frame back, host clock). Both: process
+    (process_frame, host clock to a synchronised device)."""
+    wait: List[float] = dataclasses.field(default_factory=list)
     decode: List[float] = dataclasses.field(default_factory=list)
     correct: List[float] = dataclasses.field(default_factory=list)
     round_trip: List[float] = dataclasses.field(default_factory=list)
     process: List[float] = dataclasses.field(default_factory=list)
 
     def summary(self) -> str:
-        def pq(xs):
-            return f"p50 {np.percentile(xs, 50):.2f} p95 {np.percentile(xs, 95):.2f}"
-        return (f"decode {pq(self.decode)}, correct+remap {pq(self.correct)}, "
-                f"round trip {pq(self.round_trip)}, process_frame {pq(self.process)} ms")
+        names = (("loader wait", self.wait), ("decode", self.decode),
+                 ("correct+remap", self.correct), ("round trip", self.round_trip),
+                 ("process_frame", self.process))
+        return ", ".join(f"{name} p50 {np.percentile(xs, 50):.2f} p95 {np.percentile(xs, 95):.2f}"
+                         for name, xs in names if xs) + " ms"
 
 
 @dataclasses.dataclass
@@ -138,10 +144,32 @@ class RunResult:
     viewer: Optional[MapServer] = None
 
 
+def open_loader(rd: DatasetReader, photometric: bool, n_prefetch: int = 8, n_threads: int = 2):
+    """The prefetching loader over `rd`'s frames, correcting them as
+    FrameCorrector does (the inverse response and vignette when
+    `photometric`, then the remap): NativeLoader over the files of a
+    directory, NativeMemLoader over the members of images.zip (read on the
+    caller's thread). scripts/run_sequence.py:188-209."""
+    pc = rd.photometric
+    inv_resp = inv_vig = None
+    if photometric:
+        if pc.gamma is not None:
+            inv_resp = invert_response(torch.as_tensor(pc.gamma)).numpy()
+        inv_vig = pc.inv_vignette
+    kw = dict(n_prefetch=n_prefetch, n_threads=n_threads, inv_response=inv_resp,
+              inv_vignette=inv_vig, remap=rd.camera.remap)
+    if rd._zip is None:
+        return native_loader.NativeLoader(rd.files, **kw)
+    zf, files = rd._zip, list(rd.files)
+    return native_loader.NativeMemLoader(len(files), lambda i: zf.read(files[i]), **kw)
+
+
 def run_dataset(args, metrics: Optional[str], cfg: Config) -> RunResult:
-    """The dataset branch: every frame decoded, corrected on the device,
-    pulled back and handed to the sequential system."""
+    """The dataset branch: every frame corrected on the host by the
+    prefetching loader (or, with --no-prefetch, decoded here, corrected on
+    the device and pulled back) and handed to the sequential system."""
     rd = DatasetReader(args.dataset)
+    loader = None
     try:
         cam = rd.camera
         if cam is None:
@@ -155,7 +183,12 @@ def run_dataset(args, metrics: Optional[str], cfg: Config) -> RunResult:
                           metrics_path=metrics, device=args.device)
         # online calibration fits response and vignette itself: raw frames,
         # remapped only (the reversed order of DatasetLoader.h:436-506)
-        correct = FrameCorrector(rd, not args.online_calib, args.device)
+        photometric = not args.online_calib
+        if args.no_prefetch:
+            correct = FrameCorrector(rd, photometric, args.device)
+        else:
+            loader = open_loader(rd, photometric)
+        device = torch.device(args.device)
         times = FrameTimes()
         n = len(rd) if not args.max_frames else min(len(rd), args.max_frames)
         n_done = n_skipped = 0
@@ -164,14 +197,20 @@ def run_dataset(args, metrics: Optional[str], cfg: Config) -> RunResult:
             i = 0
             while i < n:
                 ta = time.perf_counter()
-                fd = rd.get_raw(i)
-                tb = time.perf_counter()
-                img = correct.to_host(fd.image, times)
-                tc = time.perf_counter()
-                slam.process_frame(img, fd.timestamp, fd.exposure)
-                if correct.device.type == "cuda":
-                    torch.cuda.synchronize(correct.device)
-                times.decode.append(1e3 * (tb - ta))
+                if loader is not None:
+                    img = loader.get(i)
+                    ts, exp = rd.timestamps[i], rd.exposures[i]
+                    tc = time.perf_counter()
+                    times.wait.append(1e3 * (tc - ta))
+                else:
+                    fd = rd.get_raw(i)
+                    times.decode.append(1e3 * (time.perf_counter() - ta))
+                    img = correct.to_host(fd.image, times)
+                    ts, exp = fd.timestamp, fd.exposure
+                    tc = time.perf_counter()
+                slam.process_frame(img, ts, exp)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
                 times.process.append(1e3 * (time.perf_counter() - tc))
                 n_done += 1
                 if args.viz_dir and slam.shells[-1].is_kf:
@@ -197,6 +236,8 @@ def run_dataset(args, metrics: Optional[str], cfg: Config) -> RunResult:
             raise
         return RunResult(slam, n_done, time.perf_counter() - t0, n_skipped, times)
     finally:
+        if loader is not None:
+            loader.close()
         rd.close()
 
 
@@ -253,6 +294,9 @@ def parse_args(argv=None):
     ap.add_argument("--online-calib", action="store_true",
                     help="estimate response/vignette/exposure online "
                          "(OnlineCalibrator capability; frames are fed RAW)")
+    ap.add_argument("--no-prefetch", action="store_true",
+                    help="decode on the calling thread and correct on the device "
+                         "(the JAX script's path without its native loader)")
     ap.add_argument("--device", type=str, default="cuda")
     args = ap.parse_args(argv)
     if not args.synthetic and not args.dataset:
@@ -271,8 +315,9 @@ def run(args, cfg: Optional[Config] = None) -> RunResult:
     the live viewer, still serving; the caller stops it. `cfg` replaces the
     branch's configuration (tests run small ones)."""
     if not args.synthetic:
-        print("decoding with DatasetReader.get_raw (cv2 on the calling thread); "
-              "the native prefetch loader is not ported")
+        print("frames decoded on the calling thread, corrected on the device"
+              if args.no_prefetch else
+              "frames through the prefetching loader (2 threads, 8 ahead, corrected on the host)")
     metrics = args.metrics
     viewer = None
     if args.view3d:
