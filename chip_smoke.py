@@ -54,11 +54,17 @@ Phases (each failure is fatal; nothing falls back to the CPU):
  14. distributed: the point-sharded BA and point marginalization, the
      edge-sharded PCG (10,000 nodes) and the keyframe-block-sharded global BA
      (256 keyframes) on a world of one over NCCL, bit for bit against the
-     unsharded calls, and on two ranks over Gloo on the one card, against
+     unsharded calls, then phase 7's main path with dist_mesh there (phase
+     7's bars); on two ranks over Gloo on the one card, the calls against
      them within tests/test_dist.py's tolerances; then the default hybrid
      system with dist_mesh on both ranks over the arc (the same bits on both,
-     ATE, keyframes against the single-process run) and dryrun_multichip(2).
-     Each rank is a spawned process; no scaling is claimed (one card);
+     ATE, keyframes against the single-process run), phase 7's main path
+     (pipelined, loop closure) in lockstep on both ranks, once as it comes
+     and once with rank 1's mapping thread slowed (the same bits on both,
+     phase 7's bars, pyramid launches per rank, fps against phase 7, the
+     control broadcasts per frame and per mapping step), and
+     dryrun_multichip(2). Each rank is a spawned process; no scaling is
+     claimed (one card);
  15. sequences from disk: an EuRoC (752x480 RadTan) and a TUM monoVO
      (1280x1024 FOV, response, vignette, exposures) fixture, both cropped
      to 640x480; every frame of each through the prefetching loader
@@ -146,6 +152,8 @@ JAX_CPU_LOOP_DEBUG = dict(valid=326, ate_min=0.12712647885699854, ate_max=0.1623
 # the port on the CPU: [0, 9, 26, 35, 45, 59], ATE 0.0728)
 JAX_CPU_SYNTH = dict(sha256="2a82e690b36f3033bd72799ce4809257e1a3b4921119421c67688f9e727b5006",
                      kf_frames=[0, 10, 27, 35, 44, 59], ate=0.07577175173288406)
+# numbers one phase hands to a later one (phase 7's fps to phase 14)
+RESULTS: dict = {}
 LEVEL_ATOL = 1e-4            # tests/test_pallas.py: 0.25*sum vs mean, f32 order
 G2_RTOL, G2_ATOL = 1e-5, 1e-2
 
@@ -742,6 +750,7 @@ def phase_pipelined(card):
     """The main path, by the default constructor; then the same run without
     loop closure, in the same call, for the worker's cost to the tracker."""
     launches, fps_on, p50_on = _run_pipelined(card, True)
+    RESULTS["pipelined_fps"] = fps_on            # phase 14 (b) compares with it
     more, fps_off, p50_off = _run_pipelined(card, False)
     log(f"[pipelined] {card} | loop-closure worker on: fps {fps_on:.2f} completion p50 "
         f"{p50_on:.2f} ms; off: fps {fps_off:.2f} completion p50 {p50_off:.2f} ms")
@@ -1486,9 +1495,81 @@ def _median_ms(fn, reps=3):
     return float(np.median([_timed(fn)[1] for _ in range(reps)]))
 
 
-def _p14_world_of_one(mesh, wnd, calib, cfg, marg, pg_args):
+def _p14_pipelined(mesh, frames, sleep_rank=None):
+    """Phase 7's main path on this rank of `mesh`: the default hybrid system
+    with loop closure and dist_mesh, through process_frame_pipelined,
+    flush_pipeline and finish; `sleep_rank`'s mapping thread sleeps 0.1 s
+    before each step. On two ranks rank 0 tracks and decides and rank 1
+    replays. The pyramid counts are set to 0 just before the run and read
+    just after it."""
+    from hslam_tpu_torch.models.system import SLAMSystem
+    from hslam_tpu_torch.ops import pyramid as P
+    H, W, FX = 480, 640, 320.0
+    slam = SLAMSystem(FX, FX, W / 2 - 0.5, H / 2 - 0.5, W, H, _hybrid_cfg(), sequential=False,
+                      dist_mesh=mesh)
+    if mesh.rank == sleep_rank:
+        execute = slam._map_execute
+
+        def slow(*step):
+            time.sleep(0.1)
+            return execute(*step)
+        slam._map_execute = slow
+    try:
+        torch.cuda.synchronize()
+        P.kernel_launches = 0
+        P.plain_calls = 0
+        t_all = time.perf_counter()
+        for i, f in enumerate(frames):
+            slam.process_frame_pipelined(f, 0.05 * i)
+            torch.cuda.synchronize()          # as phase 7 times its frames
+        slam.flush_pipeline()
+        slam.finish()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_all
+        launches, plain = P.kernel_launches, P.plain_calls
+    finally:
+        slam.close()
+    channels = {k: None if c is None else (c.n_broadcasts, c.seconds)
+                for k, c in (("trk", slam._trk), ("map", slam._map))}
+    lc = slam.loop_closer
+    return dict(poses=np.stack([s.cam_to_world for s in slam.shells]),
+                valid=[s.pose_valid for s in slam.shells], keyframes=slam.next_kf_id,
+                initialized=slam.initialized, lost=slam.is_lost, retries=slam.n_track_retries,
+                skipped=slam.n_frames_skipped, launches=launches, plain=plain,
+                fps=len(frames) / wall, ind_obs=sum(slam.ind_obs_history),
+                lc_entries=-1 if lc is None else len(lc.entries), loops=slam.n_loops_closed,
+                follower=slam._follower, **channels)
+
+
+def _pipelined_failures(tag, r, centres, leader=True):
+    """Phase 7's bars on one rank's _p14_pipelined result; a follower builds
+    one pyramid per frame and tracks nothing. Returns (ATE, failures)."""
+    from hslam_tpu_torch.io.trajectory import ate_rmse
+    n = len(r["valid"])
+    valid = [i for i, v in enumerate(r["valid"]) if v]
+    ate = float(ate_rmse(centres[valid], r["poses"][valid, :3, 3])) if valid else float("nan")
+    bar = max(1.5 * JAX_CPU_ATE_HYBRID, 0.02)
+    out = []
+    if not r["initialized"] or r["lost"] or len(valid) != n or not np.all(np.isfinite(r["poses"])):
+        out.append(f"{tag}: {len(valid)}/{n} valid poses, lost {r['lost']}")
+    if not ate <= bar:
+        out.append(f"{tag}: ATE {ate} above {bar}")
+    if r["keyframes"] < 3 or abs(r["keyframes"] - JAX_CPU_KFS_HYBRID) > 1:
+        out.append(f"{tag}: {r['keyframes']} keyframes (JAX CPU {JAX_CPU_KFS_HYBRID})")
+    if r["ind_obs"] <= 0:
+        out.append(f"{tag}: no indirect observation reached the BA")
+    if r["lc_entries"] < r["keyframes"] - 1:
+        out.append(f"{tag}: loop-closure worker saw {r['lc_entries']} of {r['keyframes']} keyframes")
+    want = n + r["retries"] if leader else n
+    if r["launches"] != want or r["plain"] != 0:
+        out.append(f"{tag}: pyramid launches {r['launches']} (want {want}), plain {r['plain']}")
+    return ate, out
+
+
+def _p14_world_of_one(mesh, wnd, calib, cfg, marg, pg_args, frames):
     """(a), on one rank over NCCL: every sharded call against its unsharded
-    call on the same inputs, torch.equal leaf by leaf, and their times."""
+    call on the same inputs, torch.equal leaf by leaf, and their times; then
+    the pipelined main path with dist_mesh (a world of one sends nothing)."""
     from hslam_tpu_torch.models import optimizer as O
     from hslam_tpu_torch.models import pose_graph as PG
     from hslam_tpu_torch.parallel.dist_ba import sharded_ba_optimize, sharded_marginalize_points
@@ -1513,7 +1594,8 @@ def _p14_world_of_one(mesh, wnd, calib, cfg, marg, pg_args):
                 allreduce_ms={n: _allreduce_ms(edges, n) for n in (9387, 70000)},
                 ba_ms=_median_ms(lambda: sharded_ba_optimize(mesh, wnd, calib, cfg, it)),
                 ba_plain_ms=_median_ms(lambda: O.ba_optimize(wnd, calib, cfg, it)),
-                pcg_ms=pcg_ms, pcg_plain_ms=pcg_plain_ms)
+                pcg_ms=pcg_ms, pcg_plain_ms=pcg_plain_ms,
+                pipelined=_p14_pipelined(mesh, frames))
 
 
 def _p14_two_ranks(mesh, wnd, cond, calib, cfg, marg, pg_args, gba, frames):
@@ -1573,6 +1655,10 @@ def _p14_two_ranks(mesh, wnd, cond, calib, cfg, marg, pg_args, gba, frames):
         valid=[s.pose_valid for s in slam.shells],
         poses=np.stack([s.cam_to_world for s in slam.shells]))
     slam.close()
+    # the pipelined main path in lockstep (rank 0 decides, rank 1 replays),
+    # then again with rank 1's mapping thread slowed
+    out["pipelined"] = _p14_pipelined(mesh, frames)
+    out["pipelined_sleep"] = _p14_pipelined(mesh, frames, sleep_rank=1)
     return out
 
 
@@ -1643,8 +1729,8 @@ def phase_distributed(card):
     cpu = lambda t: _to(t, "cpu")  # noqa: E731
     marg = (tm.cpu(), td.cpu())
     # (a) a world of one over NCCL
-    a, = run_ranks(_p14_world_of_one, 1, args=(cpu(wnd), cpu(calib), cfg, marg, pg_args),
-                   backend="nccl", timeout=300)
+    a, = run_ranks(_p14_world_of_one, 1, args=(cpu(wnd), cpu(calib), cfg, marg, pg_args, frames),
+                   backend="nccl", timeout=400)
     log(f"[distributed] {card} | (a) 1 rank NCCL: sharded == unsharded (torch.equal) "
         f"{a['equal']}; BA per keyframe ({it} GN iterations at most) {a['ba_ms']:.2f} ms "
         f"sharded vs {a['ba_plain_ms']:.2f} unsharded; PCG 10,000 nodes {a['pcg_ms']:.1f} ms "
@@ -1653,11 +1739,22 @@ def phase_distributed(card):
         f"the loop {a['fixed']}, per optimize call; ms per all_reduce with a host sync, by "
         f"float32 values (the BA's camera system, the PCG's node vector): {a['allreduce_ms']}")
     failures = [f"(a) {k} differs from unsharded" for k, ok in a["equal"].items() if not ok]
+    pa = a["pipelined"]
+    ate_a, bad = _pipelined_failures("(a) pipelined", pa, centres)
+    failures += bad
+    log(f"[distributed] {card} | (a) pipelined main path, dist_mesh of 1 (no control records: "
+        f"{pa['trk'] is None and pa['map'] is None}): keyframes {pa['keyframes']} (JAX CPU "
+        f"{JAX_CPU_KFS_HYBRID}), valid {sum(pa['valid'])}/{SEQ_FRAMES}, ATE {ate_a:.6f}, fps "
+        f"{pa['fps']:.2f} (phase 7 {RESULTS.get('pipelined_fps', float('nan')):.2f}), retries "
+        f"{pa['retries']}, skipped {pa['skipped']}, pyramid launches {pa['launches']}, plain "
+        f"{pa['plain']}, loop-closure entries {pa['lc_entries']}")
+    if pa["trk"] is not None or pa["map"] is not None:
+        failures.append("(a) a world of one made control channels")
 
     # (b) two ranks over Gloo, both on the card
     r0, r1 = run_ranks(_p14_two_ranks, 2, args=(cpu(wnd), cpu(cond), cpu(calib), cfg, marg,
                                                 pg_args, gba, frames),
-                       backend="gloo", timeout=600)
+                       backend="gloo", timeout=900)
     same = all(np.array_equal(x, y) for k in ("ba", "ba_raw", "marginalize", "pcg", "global_ba")
                for x, y in zip(r0[k], r1[k]))
     s0, s1 = r0["system"], r1["system"]
@@ -1740,6 +1837,34 @@ def phase_distributed(card):
     for s in (s0, s1):
         if s["launches"] != SEQ_FRAMES + s["retries"] or s["plain"] != 0:
             failures.append(f"(b) pyramid launches {s['launches']}, plain {s['plain']}")
+    lockstep_launches = 0
+    for key, what in (("pipelined", "pipelined main path"),
+                      ("pipelined_sleep", "pipelined main path, rank 1's mapping thread "
+                                          "sleeping 0.1 s a step")):
+        p0, p1 = r0[key], r1[key]
+        same = np.array_equal(p0["poses"], p1["poses"]) and p0["valid"] == p1["valid"]
+        ate_p, bad = _pipelined_failures(f"(b) {key}", p0, centres)
+        failures += bad + _pipelined_failures(f"(b) {key} rank 1", p1, centres, leader=False)[1]
+        if not same:
+            failures.append(f"(b) {key}: the two ranks' trajectories differ")
+        if p0["follower"] or not p1["follower"]:
+            failures.append(f"(b) {key}: roles {p0['follower']}, {p1['follower']}")
+        (t0n, t0s), (m0n, m0s) = p0["trk"], p0["map"]
+        (t1n, t1s), (m1n, m1s) = p1["trk"], p1["map"]
+        log(f"[distributed] {card} | (b) {what}, 2 ranks Gloo: trajectories and validity equal "
+            f"bit for bit {same}; keyframes {p0['keyframes']} / {p1['keyframes']} (JAX CPU "
+            f"{JAX_CPU_KFS_HYBRID}), valid {sum(p0['valid'])}/{SEQ_FRAMES}, ATE {ate_p:.6f} "
+            f"(bar 0.02), lost {p0['lost']}; fps {p0['fps']:.2f} / {p1['fps']:.2f} (ranks 0 / 1; "
+            f"phase 7, one process: {RESULTS.get('pipelined_fps', float('nan')):.2f}); retries "
+            f"{p0['retries']}, skipped {p0['skipped']} / {p1['skipped']}, loop-closure entries "
+            f"{p0['lc_entries']} / {p1['lc_entries']}, loops closed {p0['loops']} / {p1['loops']}; "
+            f"pyramid launches {p0['launches']} (= {SEQ_FRAMES} + {p0['retries']} retries) / "
+            f"{p1['launches']}, plain {p0['plain'] + p1['plain']}")
+        log(f"[distributed] (b) {key} control broadcasts (host clock, ranks 0 / 1): tracking "
+            f"{t0n} ({t0n / SEQ_FRAMES:.2f} per frame, {1e3 * t0s / SEQ_FRAMES:.3f} / "
+            f"{1e3 * t1s / SEQ_FRAMES:.3f} ms per frame), mapping {m0n} ({m0n - 1} steps and the "
+            f"end mark; {1e3 * m0s / max(m0n, 1):.3f} / {1e3 * m1s / max(m1n, 1):.3f} ms per step)")
+        lockstep_launches += p0["launches"] + p1["launches"]
     if launches != builds or plain != 0:
         failures.append(f"single process: pyramid launches {launches}, plain {plain}")
 
@@ -1749,7 +1874,7 @@ def phase_distributed(card):
     log(f"[distributed] phase 14 took {time.perf_counter() - t_phase:.1f} s")
     if failures:
         raise AssertionError("distributed: " + "; ".join(failures))
-    return launches + s0["launches"] + s1["launches"]
+    return launches + s0["launches"] + s1["launches"] + pa["launches"] + lockstep_launches
 
 
 LOADER_RTOL, LOADER_ATOL = 1e-5, 1e-3   # tests/test_native_loader.py:117,150

@@ -23,7 +23,7 @@ rBRIEF of its image without the indirect layer, with keypoint inverse
 depths), excluded from matching against the keyframes it shares residuals
 with (`connectivity`). Detection, verification and the pose-graph relaxation
 run inline (`sequential=True`) or on a loop-closure worker thread, which
-leaves its correction in `_pending_loop_corr` for the mapping thread to
+leaves its numbered corrections in `_lc_corrs` for the mapping thread to
 apply between keyframe steps: one gauge transform for the whole window.
 
 Threads and the device: the tracking thread (the caller), the mapping thread
@@ -50,9 +50,27 @@ one "frame" per tracked frame of `process_frame`, one "kf" and one "map"
 `dist_mesh` (a `parallel.distributed.Mesh`): the windowed BA and the point
 marginalization run point-sharded over its ranks, and the loop closer's
 matrix-free pose graph edge-sharded over a group of its own. Every rank
-runs this same system over the same frames (parallel/__init__.py). Refused
-with NotImplementedError: the entry with the mapping thread
-(`sequential=False`) on more than one rank (ROADMAP C15).
+runs this same system over the same frames (parallel/__init__.py). The
+sequential entry is replicated: each rank makes every decision itself. The
+threaded entries (`sequential=False`) on more than one rank run in lockstep:
+rank 0 tracks and makes each decision that depends on thread timing, and
+the other ranks replay it from two control channels (Gloo groups of their
+own, parallel/distributed.Channel):
+  * the tracking thread's: one record per call of an entry (initialize this
+    frame, or a tracked frame's pose, reference, affine, validity, keyframe
+    need and tracker residuals), then the calibration fit's state when one
+    landed. A follower builds each frame's pyramid itself (the same frame
+    and correction give the same bits), runs no tracking, writes the record
+    into its shell and enqueues what rank 0 enqueued;
+  * the mapping thread's: one decision per step (the frames it pops, drops
+    or traces, whether it keyframes, the loop correction it folds in first,
+    the calibration re-sync and the tracker state a keyframe step reads).
+    A follower waits until those frames are in its queue (and the correction
+    from its own worker) and runs the step as told, so the sharded BA's
+    collectives come in the same order on every rank.
+The loop-closure worker needs no record: its entries come from the mapping
+thread in lockstep, with the intrinsics of their keyframe step. Every rank
+ends with the same trajectory, bit for bit.
 """
 from __future__ import annotations
 
@@ -84,6 +102,7 @@ from ..ops import tracker as trk_ops
 from ..ops import twoview as tv_ops
 from ..ops.pyramid import build_direct_pyramid, gaussian_blur7, image_gradients
 from ..ops.undistort import invert_response, photometric_correct, response_grad_weight
+from ..parallel.distributed import Channel
 from ..utils import lie
 from ..utils.compaction import assign_free_slots, scatter_update
 from ..utils.interp import bilinear, bilinear_stack
@@ -214,6 +233,45 @@ def map_cloud(frames: W.Frames, points: W.Points, calib_value):
     return xyz, ok, points.color[:, 4]
 
 
+# Lockstep control records (rank 0 -> the other ranks of a mesh). Tracking
+# thread, one per call of an entry and per completed frame: a head (this
+# call initializes; a pipelined call, with the frame it completed if any),
+# a completed frame (by flush_pipeline or process_frame), a lost frame, and
+# the marks of flush_pipeline, finish and close.
+R_INIT, R_STEP, R_DONE, R_LOST, R_FLUSH, R_FINISH, R_END = range(1, 8)
+# mapping thread, one per step; its actions
+M_STEP, M_END = 1, 2
+KF_FORCED, TRACE, KF_DEFER = 0, 1, 2
+MAP_FIELDS = (("kind", ()), ("sid", ()), ("n_drop", ()), ("action", ()), ("extra", ()),
+              ("corr", ()), ("ref_slot", ()), ("iw_scale", ()), ("resync_fit", ()))
+# how long a follower waits for what rank 0's record names (its own queued
+# frames, its worker's correction, its tracking thread's fit)
+REPLAY_TIMEOUT_S = 600.0
+
+
+def _n_rmse(cfg: Config) -> int:
+    """Room for the tracker's residuals: one per level (5 before a frame
+    was tracked)."""
+    return max(5, cfg.pyr_levels)
+
+
+def track_fields(cfg: Config):
+    """The tracking thread's record: a frame's shell and tracker state
+    (`rmse` holds the tracker's per-level residuals, `rmse_n` of them)."""
+    return (("kind", ()), ("sid", ()), ("c2w", (4, 4)), ("c2r", (4, 4)), ("ref", ()),
+            ("aff", (2,)), ("valid", ()), ("reloc", ()), ("retried", ()), ("need_kf", ()),
+            ("rmse", (_n_rmse(cfg),)), ("rmse_n", ()), ("first_rmse", ()),
+            ("flow", (3,)), ("fit", ()))
+
+
+def _control_channels(mesh, cfg: Config):
+    """The tracking and mapping threads' channels on a mesh of more than one
+    rank (both None otherwise: a world of one sends nothing)."""
+    if mesh is None or mesh.size == 1:
+        return None, None
+    return Channel(track_fields(cfg), mesh), Channel(MAP_FIELDS, mesh)
+
+
 class SLAMSystem:
     """Monocular hybrid direct-indirect SLAM engine on torch."""
 
@@ -243,27 +301,24 @@ class SLAMSystem:
         record's point cloud).
 
         `dist_mesh` (optional `parallel.distributed.Mesh`, made on every
-        rank, which all run this constructor and feed the same frames):
-        point-shard the windowed BA and the point marginalization over the
-        mesh; cfg.max_points must divide into the mesh size."""
-        if dist_mesh is not None:
-            if cfg.max_points % dist_mesh.size:
-                raise ValueError(f"max_points {cfg.max_points} does not divide into "
-                                 f"the mesh size {dist_mesh.size}")
-            if not sequential and dist_mesh.size > 1:
-                # C15: the mapping thread keyframes whichever queued frame is
-                # freshest and the new reference lands when it finishes (C7),
-                # so ranks would keyframe different frames and then wait on
-                # each other in mismatched collectives
-                raise NotImplementedError(
-                    "sequential=False on a mesh of more than one rank: the mapping "
-                    "thread's keyframe choice depends on thread timing, so the ranks "
-                    "would diverge and deadlock in their collectives; use "
-                    "sequential=True (process_frame) on a mesh")
+        rank, which all run this constructor with the same arguments and
+        make the same calls with the same frames): point-shard the windowed
+        BA and the point marginalization over the mesh; cfg.max_points must
+        divide into the mesh size. With `sequential=False` on more than one
+        rank, rank 0 tracks and decides and the other ranks replay (see the
+        module's docstring); a rank that finds no record raises."""
+        if dist_mesh is not None and cfg.max_points % dist_mesh.size:
+            raise ValueError(f"max_points {cfg.max_points} does not divide into "
+                             f"the mesh size {dist_mesh.size}")
         self.dist_mesh = dist_mesh
         # the loop closer's pose graph may run on the worker thread while the
         # mapping thread's BA uses dist_mesh: a group of its own
         self._edge_mesh = None if dist_mesh is None else dist_mesh.split("edges")
+        # the threaded entries' control channels (rank 0 -> the others)
+        self._trk, self._map = ((None, None) if sequential
+                                else _control_channels(dist_mesh, cfg))
+        self._follower = self._trk is not None and not self._trk.leader
+        self._trk_ended = False           # a follower got rank 0's end mark
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -285,6 +340,11 @@ class SLAMSystem:
         self._pc_window_resync = False      # first fit landed: the mapping thread
                                             # re-corrects the window at its next keyframe
         self.n_photo_fits = 0
+        # guards the fit's publication against the mapping thread's read of
+        # the re-sync; a follower keeps each fit's correction until the
+        # re-sync rank 0 names has run
+        self._pc_cond = threading.Condition()
+        self._pc_luts_hist: dict = {}
         self.loop_closer: Optional[LoopCloser] = None   # built once a vocabulary exists
         self._vocab_descs: list = []      # descriptor pool for online training
         self._pending_entries: list = []  # keyframe entries awaiting the vocabulary
@@ -371,12 +431,14 @@ class SLAMSystem:
         self.kf_full_latencies: deque = deque(maxlen=200)
         self.lc_detect_ms: deque = deque(maxlen=200)
         # loop-closure worker (sequential=False): BoW, PnP and the pose graph
-        # run off the mapping thread; corrections come back through
-        # _pending_loop_corr and are applied between keyframe steps
+        # run off the mapping thread; corrections come back numbered through
+        # _lc_corrs and are applied between keyframe steps
         self._lc_thread = None
-        self._pending_loop_corr = None
-        self._lc_corr_lock = threading.Lock()
+        self._lc_corrs: dict = {}          # correction number -> {shell_id: cam_to_world}
+        self._lc_n_corrs = 0
+        self._lc_corr_cond = threading.Condition()
         self._map_thread = None
+        self._map_broken = False          # the mapping thread ended on a broken control stream
         if not sequential:
             self._queue: deque = deque()
             self._qcond = threading.Condition()
@@ -440,16 +502,29 @@ class SLAMSystem:
         pyr, grads = self._pyramid(raw)
         shell = self._new_shell(timestamp, exposure)
         self._raise_map_exc()
-        if not self.initialized:
+        if self._follower:
+            rec = self._recv_frame(R_INIT, R_DONE, R_LOST)
+            init = rec["kind"] == R_INIT
+        else:
+            init = not self.initialized
+            if init:
+                self._send_frame(R_INIT)
+        if init:
+            self._lockstep_idle()
             self._try_initialize(shell, pyr, grads)
             return shell
-        self._adopt_pending_ref()
-        if not self._track_new_coarse(shell, pyr):
+        if self._follower:
+            need_kf = self._apply_frame(shell, rec)
+            ok = rec["kind"] == R_DONE
+        else:
+            self._adopt_pending_ref()
+            ok = self._track_new_coarse(shell, pyr)
+            fit = ok and self.online_photo_calib and self._pc_observe(shell.id, raw)
+            need_kf = ok and self._need_keyframe(shell)
+            self._send_frame(R_DONE if ok else R_LOST, shell, need_kf, fit=fit)
+        if not ok:
             self.is_lost = True
             return shell
-        if self.online_photo_calib:
-            self._pc_observe(shell.id, raw)
-        need_kf = self._need_keyframe(shell)
         self._emit_metrics(
             t="frame", id=shell.id, ts=timestamp, kf=bool(need_kf),
             rmse=float(self.last_coarse_rmse[0]), pose_valid=bool(shell.pose_valid),
@@ -473,6 +548,76 @@ class SLAMSystem:
             self._queue.append((shell, pyr, grads))
             self._qcond.notify_all()
 
+    # ------------------------------------------------ lockstep (a mesh)
+    def _send_frame(self, kind, shell: Optional[Shell] = None, need_kf=False,
+                    retried=False, fit=False):
+        """Rank 0: one tracking record, `shell`'s (a bare mark without one),
+        then the fit's state when a fit landed with this frame. A no-op off
+        a mesh."""
+        if self._trk is None or self._trk_ended:
+            return
+        rmse = np.zeros(_n_rmse(self.cfg))
+        rmse[:len(self.last_coarse_rmse)] = self.last_coarse_rmse
+        rec = dict(kind=kind, sid=-1, c2w=np.eye(4), c2r=np.eye(4), ref=-1, aff=np.zeros(2),
+                   valid=True, reloc=False, retried=retried, need_kf=need_kf, rmse=rmse,
+                   rmse_n=len(self.last_coarse_rmse), first_rmse=self.first_coarse_rmse,
+                   flow=self._last_flow, fit=fit)
+        if shell is not None:
+            with self._shell_lock:
+                c2w = shell.cam_to_world.copy()
+            rec.update(sid=shell.id, c2w=c2w, c2r=shell.cam_to_ref, aff=shell.aff,
+                       ref=-1 if shell.tracking_ref is None else shell.tracking_ref,
+                       valid=shell.pose_valid, reloc=shell.relocalized)
+        self._trk.send(**rec)
+        if fit:
+            self._trk.send_tensors([*self._pc_params, self._pc_rms, *self._pc_luts])
+        if kind == R_END:
+            self._trk_ended = True
+
+    def _recv_frame(self, *kinds) -> dict:
+        """A follower: rank 0's next tracking record, which must be of one of
+        `kinds`; rank 0's end mark (it closed, or failed) raises."""
+        if self._trk_ended:
+            raise RuntimeError("rank 0 has ended the tracking stream")
+        rec = self._trk.recv()
+        if rec["kind"] == R_END:
+            self._trk_ended = True
+            raise RuntimeError("rank 0 ended the tracking stream (closed or failed) "
+                               "while this rank was still running its frames")
+        if rec["kind"] not in kinds:
+            raise RuntimeError(f"rank 0 sent a record of kind {int(rec['kind'])} where "
+                               f"this rank expects one of {kinds}: the ranks' calls differ")
+        return rec
+
+    def _apply_frame(self, shell: Shell, rec: dict) -> bool:
+        """A follower: write rank 0's record of this frame into its shell and
+        tracker state (and the fit that landed with it); returns the keyframe
+        need."""
+        if int(rec["sid"]) != shell.id:
+            raise RuntimeError(f"rank 0 sent frame {int(rec['sid'])}'s record for frame "
+                               f"{shell.id}: the ranks' calls differ")
+        shell.tracking_ref = None if rec["ref"] < 0 else int(rec["ref"])
+        shell.cam_to_ref = rec["c2r"]
+        with self._shell_lock:
+            shell.cam_to_world = rec["c2w"]
+        shell.aff = rec["aff"]
+        shell.pose_valid, shell.relocalized = bool(rec["valid"]), bool(rec["reloc"])
+        self.n_relocs += int(rec["reloc"])
+        self.n_track_retries += int(rec["retried"])
+        self.last_coarse_rmse = rec["rmse"][:int(rec["rmse_n"])]
+        self.first_coarse_rmse = rec["first_rmse"]
+        self._last_flow = rec["flow"]
+        if rec["fit"]:
+            self._pc_apply_fit(self._trk.recv_tensors(self.device))
+        return bool(rec["need_kf"])
+
+    def _lockstep_idle(self):
+        """Before a (re-)initialization on a mesh: let the mapping thread
+        finish its steps, whose collectives share the keyframe step's group
+        with the initialization's."""
+        if self._trk is not None:
+            self._wait_mapping_idle()
+
     # ---------------------------------------------------- pipelined entry
     def process_frame_pipelined(self, image: np.ndarray, timestamp: float,
                                 exposure: float = 1.0) -> Optional[Shell]:
@@ -484,8 +629,17 @@ class SLAMSystem:
             raise RuntimeError("process_frame_pipelined needs sequential=False")
         self._raise_map_exc()
         shell = self._new_shell(timestamp, exposure)
-        if not self.initialized:
-            self.flush_pipeline()
+        if self._follower:
+            rec = self._recv_frame(R_INIT, R_STEP)
+            init = rec["kind"] == R_INIT
+        else:
+            init = not self.initialized
+            if init:
+                self._send_frame(R_INIT)
+        if init:
+            if self._pipe:
+                self.flush_pipeline()
+            self._lockstep_idle()
             raw = torch.as_tensor(np.ascontiguousarray(image)).to(self.device)
             pyr, grads = self._pyramid(raw)
             self._try_initialize(shell, pyr, grads)
@@ -495,6 +649,18 @@ class SLAMSystem:
                 self._dev_prev = self._f32(shell.cam_to_world)
                 self._dev_prevprev = self._dev_prev
                 self._dev_aff = self._f32(shell.aff)
+            return None
+        # the frame crosses to the device in its own dtype (uint8: 4x fewer
+        # bytes); the pyramid casts it there
+        raw = torch.as_tensor(np.ascontiguousarray(image)).to(self.device)
+        if self._follower:
+            # no tracking here: this frame's pyramid, and rank 0's record of
+            # the frame it completed
+            self._pipe.append((shell, self._pyramid(raw)))
+            if rec["sid"] >= 0:
+                return self._complete_replayed(*self._pipe.popleft(), rec)
+            if len(self._pipe) > self.pipeline_lag:
+                raise RuntimeError("rank 0 completed no frame where this rank would")
             return None
 
         self._adopt_pending_ref()
@@ -509,9 +675,6 @@ class SLAMSystem:
             dt_ratio = float(np.clip(dt_new / dt_prev, 0.1, 32.0))
         else:
             dt_ratio = 1.0
-        # the frame crosses to the device in its own dtype (uint8: 4x fewer
-        # bytes); the pyramid casts it there
-        raw = torch.as_tensor(np.ascontiguousarray(image)).to(self.device)
         out = self._track_step(raw, self._f32(ref_c2w), self._dev_prev, self._dev_prevprev,
                                self._frontier_frames >= 2, self._dev_aff, shell.exposure,
                                dt_ratio)
@@ -523,15 +686,30 @@ class SLAMSystem:
         self._prev_ts = timestamp
         self._frontier_frames += 1
         if len(self._pipe) > self.pipeline_lag:
-            return self._complete_tracked(*self._pipe.popleft())
+            return self._complete_tracked(*self._pipe.popleft(), kind=R_STEP)
+        self._send_frame(R_STEP)
         return None
 
     def flush_pipeline(self):
         """Complete all in-flight pipelined frames."""
         out = None
         while self._pipe:
-            out = self._complete_tracked(*self._pipe.popleft())
+            if self._follower:
+                out = self._complete_replayed(*self._pipe.popleft(), self._recv_frame(R_DONE))
+            else:
+                out = self._complete_tracked(*self._pipe.popleft())
+        if self._follower:
+            self._recv_frame(R_FLUSH)
+        else:
+            self._send_frame(R_FLUSH)
         return out
+
+    def _complete_replayed(self, shell: Shell, pyr_grads, rec: dict) -> Shell:
+        """A follower's _complete_tracked: rank 0's record, then the frame
+        with this rank's own pyramid to the mapping thread."""
+        need_kf = self._apply_frame(shell, rec)
+        self._enqueue(shell, *pyr_grads, need_kf)
+        return shell
 
     @staticmethod
     def _pull_track(out):
@@ -543,11 +721,12 @@ class SLAMSystem:
         return (flat[:9].reshape(3, 3), flat[9:12], flat[12:14], flat[14] > 0.5,
                 flat[15:15 + L], flat[15 + L:18 + L])
 
-    def _complete_tracked(self, shell: Shell, out, raw) -> Shell:
+    def _complete_tracked(self, shell: Shell, out, raw, kind=R_DONE) -> Shell:
         """Finalize one pipelined frame: pull the result, publish the pose,
         retry from a reset motion frontier if the batched winner was
         rejected (then relocalize, then keep the predicted pose), decide the
-        keyframe and hand the frame to the mapping thread."""
+        keyframe and hand the frame to the mapping thread (on a mesh, after
+        the record of `kind` to the other ranks)."""
         R_h, t_h, aff_h, ok_h, res_h, flow_h = self._pull_track(out)    # host sync
         ok = ok_h and np.isfinite(res_h[0]) and np.all(np.isfinite(t_h))
         if ok:
@@ -593,9 +772,10 @@ class SLAMSystem:
             self._dev_prev = self._f32(shell.cam_to_world)
             self._dev_prevprev = self._dev_prev
             self._dev_aff = self._f32(shell.aff)
-        if self.online_photo_calib:
-            self._pc_observe(shell.id, raw)
-        self._enqueue(shell, out.pyr, out.grads, self._need_keyframe(shell))
+        fit = self.online_photo_calib and self._pc_observe(shell.id, raw)
+        need_kf = self._need_keyframe(shell)
+        self._send_frame(kind, shell, need_kf, retried=not ok, fit=fit)
+        self._enqueue(shell, out.pyr, out.grads, need_kf)
         return shell
 
     def _track_step(self, raw, ref_c2w, prev_c2w, prevprev_c2w, have_motion, aff0,
@@ -633,13 +813,12 @@ class SLAMSystem:
         img = photometric_correct(raw.to(torch.float32), inv_resp, inv_vig)
         return build_direct_pyramid(img, self.cfg.pyr_levels, gamma_grad_weight=grad_w)
 
-    def _pc_observe(self, shell_id: int, raw):
+    def _pc_observe(self, shell_id: int, raw) -> bool:
         """Ring the tracked frame's raw image; refit every photo_calib_every
-        frames once the ring is full."""
+        frames once the ring is full. True if a fit landed."""
         self._pc_ring.append((shell_id, raw))
-        if (len(self._pc_ring) == self._pc_ring.maxlen
-                and shell_id % self.photo_calib_every == 0):
-            self._photo_calib_step()
+        return (len(self._pc_ring) == self._pc_ring.maxlen
+                and shell_id % self.photo_calib_every == 0 and self._photo_calib_step())
 
     def _pc_sample(self, u, v, idepth, valid, K4, R_rel, t_rel, raws):
         """Raw intensities of the template points (u, v, idepth, valid: (P,))
@@ -714,9 +893,10 @@ class SLAMSystem:
         shells, on the host), sample their raw intensities and fit on the
         device without a host sync. The first fit switches the correction on
         and re-corrects the template (and a staged one) here and the window
-        on the mapping thread; later fits are blended into it."""
+        on the mapping thread; later fits are blended into it. True if a fit
+        landed."""
         if self.template is None:
-            return
+            return False
         with self._shell_lock:
             ref_c2w = self.shells[self.ref_shell_id].cam_to_world.copy()
             rels = np.stack([np.linalg.inv(self.shells[sid].cam_to_world) @ ref_c2w
@@ -731,12 +911,11 @@ class SLAMSystem:
             tpl.u[0], tpl.v[0], tpl.idepth[0], tpl.valid[0], self.calib.value[:4],
             self._f32(rels[:, :3, :3]), self._f32(rels[:, :3, 3]),
             torch.stack([r for _, r in self._pc_ring]))
-        params, self._pc_rms, inv_resp, grad_w, inv_vig = self._pc_fit(
+        params, rms, inv_resp, grad_w, inv_vig = self._pc_fit(
             obs, r2, mask, self._f32(exps), known, self._pc_params)
-        self._pc_params = params
-        self.n_photo_fits += 1
-        if self._pc_luts is None:
-            self._pc_luts = (inv_resp, inv_vig, grad_w)
+        first = self._pc_luts is None
+        if first:
+            luts = (inv_resp, inv_vig, grad_w)
             self.template = self._pc_resync_template(self.template, inv_resp, inv_vig)
             # a template staged for publication was built uncorrected too
             with self._ref_lock:
@@ -744,13 +923,69 @@ class SLAMSystem:
                     tpl_, *rest = self._pending_ref
                     self._pending_ref = (self._pc_resync_template(tpl_, inv_resp, inv_vig),
                                          *rest)
-            self._pc_window_resync = True
         else:
             # later fits blend into the applied correction: an abrupt change
             # would de-sync new frames from every keyframe image in the window
             a = self._pc_blend
-            self._pc_luts = tuple((1 - a) * old + a * new for old, new in
-                                  zip(self._pc_luts, (inv_resp, inv_vig, grad_w)))
+            luts = tuple((1 - a) * old + a * new for old, new in
+                         zip(self._pc_luts, (inv_resp, inv_vig, grad_w)))
+        self._pc_publish(params, rms, luts, first)
+        return True
+
+    def _pc_publish(self, params, rms, luts, first: bool):
+        """A fit's state; the first one asks the mapping thread for the
+        window's re-correction. A follower keeps each fit's correction until
+        that re-correction has run (rank 0 names the fit it used)."""
+        with self._pc_cond:
+            self._pc_params, self._pc_rms, self._pc_luts = params, rms, luts
+            self.n_photo_fits += 1
+            if first:
+                self._pc_window_resync = True
+            if self._follower and self._pc_window_resync:
+                self._pc_luts_hist[self.n_photo_fits] = luts
+            self._pc_cond.notify_all()
+
+    def _pc_apply_fit(self, tensors):
+        """A follower: the fit state rank 0 sent ([*params, rms, *luts]).
+        The template is not re-corrected here: a follower does not track."""
+        n = len(PC.PhotoParams._fields)
+        self._pc_publish(PC.PhotoParams(*tensors[:n]), tensors[n], tuple(tensors[n + 1:]),
+                         self._pc_luts is None)
+
+    def _kf_inputs(self):
+        """What a keyframe step reads of the tracking thread's state, as of
+        now: the tracker's reference slot, the indirect-weight scale, and
+        (fit number, correction) when the first fit's re-correction of the
+        window is due (claimed here), else None."""
+        # indirect-weight schedule: lean on the geometric terms (up to 3x)
+        # when the photometric tracker runs worse than its own baseline
+        if self.cfg.indirect_weight_schedule and self.first_coarse_rmse > 0:
+            iw_scale = float(np.clip(
+                self.last_coarse_rmse[0] / max(self.first_coarse_rmse, 1e-6), 1.0, 3.0))
+        else:
+            iw_scale = 1.0
+        resync = None
+        with self._pc_cond:
+            if self._pc_window_resync:
+                self._pc_window_resync = False
+                resync = (self.n_photo_fits, self._pc_luts)
+        return self.ref_slot, iw_scale, resync
+
+    def _replayed_kf_inputs(self, dec: dict):
+        """A follower: _kf_inputs as rank 0 read them for this step, the
+        re-correction with the fit it named (waiting for this rank's
+        tracking thread to have applied that fit)."""
+        resync = None
+        k = int(dec["resync_fit"])
+        if k:
+            with self._pc_cond:
+                if not self._pc_cond.wait_for(lambda: k in self._pc_luts_hist,
+                                              timeout=REPLAY_TIMEOUT_S):
+                    raise TimeoutError(f"fit {k} never reached this rank")
+                resync = (k, self._pc_luts_hist[k])
+                self._pc_luts_hist.clear()
+                self._pc_window_resync = False
+        return int(dec["ref_slot"]), dec["iw_scale"], resync
 
     # ------------------------------------------------------ metrics stream
     def _emit_metrics(self, **fields):
@@ -787,77 +1022,139 @@ class SLAMSystem:
     # ------------------------------------------------------ mapping thread
     def _mapping_loop(self):
         """Consumer of the tracked-frame queue, the reference's MappingThread
-        policy (Mapping.cpp:143-214): the first two tracked frames after
-        init are forced keyframes; while more frames wait, the popped one
-        is traced as a non-keyframe (in catch-up a second one is dropped);
-        the freshest frame becomes a keyframe iff the NeedNewKFAfter latch
-        outlives the newest keyframe."""
+        policy (Mapping.cpp:143-214), one step at a time: decided here
+        (_map_decide; rank 0 of a mesh sends each decision) or replayed
+        from rank 0's decision (_map_replay, the other ranks), then run
+        (_map_execute)."""
         while True:
-            with self._qcond:
-                while not self._queue and not self._map_stop:
-                    self._qcond.wait()
-                if self._map_stop and not self._queue:
-                    return
-                shell, pyr, grads = self._queue.popleft()
-                more = len(self._queue)
-                self._map_busy = True
             try:
-                # a worker-computed loop correction folds in only after a
-                # deferred keyframe finalization (the deferred bundle's poses
-                # predate the correction), and before the next keyframe or
-                # trace step touches the window
-                with self._lc_corr_lock:
-                    corr_waiting = self._pending_loop_corr is not None
-                if corr_waiting:
-                    self._finalize_pending_kf()
-                    self._apply_pending_loop_corr()
-                if more > self.CATCHUP_DRAIN:
-                    # severe overload: keep only the freshest frame
-                    dropped = [shell]
-                    with self._qcond:
-                        while len(self._queue) > 1:
-                            dropped.append(self._queue.popleft()[0])
-                        shell, pyr, grads = self._queue.pop()
-                        more = len(self._queue)
-                    self._rebase_shells(dropped)
-                    self.n_frames_skipped += len(dropped)
-                if len(self.kf_shell_ids) <= 2:
-                    # forced keyframes; the init gates are live, so synchronous
-                    self._finalize_pending_kf()
-                    t_kf = _time.perf_counter()
-                    self._add_keyframe(shell, pyr, grads)
-                    self.kf_latencies.append(_time.perf_counter() - t_kf)
-                elif more > 0:
-                    if more > 3:
-                        self._catch_up = True
-                    self._process_non_kf(shell, pyr)
-                    self._finalize_pending_kf()
-                    if self._catch_up:
-                        # drop every second frame while behind (Mapping.cpp:177-192)
-                        extra = None
-                        with self._qcond:
-                            if self._queue:
-                                extra = self._queue.popleft()
-                        if extra is not None:
-                            self._rebase_shells([extra[0]])
-                            self.n_frames_skipped += 1
-                else:
-                    newest_sid = self.kf_shell_ids[-1] if self.kf_shell_ids else -1
-                    if self._need_kf_after >= newest_sid:
-                        self._finalize_pending_kf()
-                        t_kf = _time.perf_counter()
-                        self._add_keyframe(shell, pyr, grads, defer=True)
-                        self.kf_latencies.append(_time.perf_counter() - t_kf)
-                        self._catch_up = False
-                    else:
-                        self._process_non_kf(shell, pyr)
-                        self._finalize_pending_kf()
+                step = self._map_replay() if self._follower else self._map_decide()
+            except Exception as e:    # the control stream broke: nothing more to replay
+                self._map_exc = e
+                with self._qcond:
+                    self._map_busy = False
+                    self._map_broken = True
+                    self._qcond.notify_all()
+                return
+            if step is None:
+                return
+            try:
+                self._map_execute(*step)
             except Exception as e:        # raised on the tracking thread
                 self._map_exc = e
             finally:
                 with self._qcond:
                     self._map_busy = False
                     self._qcond.notify_all()
+
+    def _map_decide(self):
+        """The policy: the first two tracked frames after init are forced
+        keyframes; while more frames wait, the popped one is traced as a
+        non-keyframe (in catch-up the next one is dropped too; beyond
+        CATCHUP_DRAIN waiting, all but the freshest are); the freshest frame
+        becomes a keyframe iff the NeedNewKFAfter latch outlives the newest
+        keyframe; the worker's newest correction folds in first. Returns the
+        step (None once stopped and drained); on a mesh, sends it."""
+        with self._qcond:
+            while not self._queue and not self._map_stop:
+                self._qcond.wait()
+            popped = self._pop_step() if self._queue else None
+        if popped is None:
+            if self._map is not None:
+                self._map.send(kind=M_END, sid=-1, n_drop=0, action=TRACE, extra=-1,
+                               corr=-1, ref_slot=-1, iw_scale=1.0, resync_fit=0)
+            return None
+        shell, pyr, grads, dropped, extra, action = popped
+        corr = self._newest_loop_corr()
+        inputs = None if action == TRACE else self._kf_inputs()
+        if self._map is not None:
+            self._map.send(kind=M_STEP, sid=shell.id, n_drop=len(dropped), action=action,
+                           extra=-1 if extra is None else extra.id, corr=corr,
+                           ref_slot=-1 if inputs is None else inputs[0],
+                           iw_scale=1.0 if inputs is None else inputs[1],
+                           resync_fit=0 if inputs is None or inputs[2] is None else inputs[2][0])
+        return shell, pyr, grads, dropped, extra, action, corr, inputs
+
+    def _pop_step(self):
+        """Under _qcond, with frames queued: pop this step's frames and pick
+        its action (_map_decide's policy)."""
+        shell, pyr, grads = self._queue.popleft()
+        more = len(self._queue)
+        self._map_busy = True
+        dropped, extra = [], None
+        if more > self.CATCHUP_DRAIN:
+            # severe overload: keep only the freshest frame
+            dropped.append(shell)
+            while len(self._queue) > 1:
+                dropped.append(self._queue.popleft()[0])
+            shell, pyr, grads = self._queue.pop()
+            more = 0
+        if len(self.kf_shell_ids) <= 2:
+            action = KF_FORCED          # the init gates are live: synchronous
+        elif more > 0:
+            if more > 3:
+                self._catch_up = True
+            action = TRACE
+            if self._catch_up:
+                # drop every second frame while behind (Mapping.cpp:177-192);
+                # the tracking thread only appends, so this is the frame
+                # that waited behind the popped one
+                extra = self._queue.popleft()[0]
+        elif self._need_kf_after >= (self.kf_shell_ids[-1] if self.kf_shell_ids else -1):
+            action = KF_DEFER
+            self._catch_up = False
+        else:
+            action = TRACE
+        return shell, pyr, grads, dropped, extra, action
+
+    def _map_replay(self):
+        """A follower's step: rank 0's decision, with the frames it names
+        popped from this rank's queue once its tracking thread has queued
+        them. None at rank 0's end mark."""
+        dec = self._map.recv()
+        if dec["kind"] == M_END:
+            return None
+        n_drop, has_extra = int(dec["n_drop"]), dec["extra"] >= 0
+        n_pop = n_drop + 1 + int(has_extra)
+        with self._qcond:
+            if not self._qcond.wait_for(lambda: len(self._queue) >= n_pop,
+                                        timeout=REPLAY_TIMEOUT_S):
+                raise TimeoutError(f"rank 0's step on frame {int(dec['sid'])} names frames "
+                                   "this rank never queued")
+            items = [self._queue.popleft() for _ in range(n_pop)]
+            self._map_busy = True
+        shell, pyr, grads = items[n_drop]
+        extra = items[-1][0] if has_extra else None
+        if shell.id != int(dec["sid"]) or (has_extra and extra.id != int(dec["extra"])):
+            raise RuntimeError(f"rank 0 stepped on frame {int(dec['sid'])} where this rank's "
+                               f"queue holds frame {shell.id}: the ranks' calls differ")
+        action = int(dec["action"])
+        inputs = None if action == TRACE else self._replayed_kf_inputs(dec)
+        return (shell, pyr, grads, [it[0] for it in items[:n_drop]], extra, action,
+                int(dec["corr"]), inputs)
+
+    def _map_execute(self, shell, pyr, grads, dropped, extra, action, corr, inputs):
+        """Run one mapping step as decided. A loop correction folds in only
+        after a deferred keyframe finalization (the deferred bundle's poses
+        predate the correction), and before the keyframe or trace step
+        touches the window."""
+        if corr >= 0:
+            self._finalize_pending_kf()
+            self._apply_loop_corr_number(corr)
+        if dropped:
+            self._rebase_shells(dropped)
+            self.n_frames_skipped += len(dropped)
+        if action == TRACE:
+            self._process_non_kf(shell, pyr)
+            self._finalize_pending_kf()
+            if extra is not None:
+                self._rebase_shells([extra])
+                self.n_frames_skipped += 1
+            return
+        self._finalize_pending_kf()
+        t_kf = _time.perf_counter()
+        self._add_keyframe(shell, pyr, grads, defer=action == KF_DEFER, inputs=inputs)
+        self.kf_latencies.append(_time.perf_counter() - t_kf)
 
     def _rebase_shells(self, shells):
         """Pose bookkeeping of frames the mapper drops."""
@@ -866,19 +1163,29 @@ class SLAMSystem:
                 if sh.tracking_ref is not None:
                     sh.cam_to_world = self.shells[sh.tracking_ref].cam_to_world @ sh.cam_to_ref
 
+    def _wait_mapping_idle(self):
+        """Until the mapping queue is empty and no step runs (or the mapping
+        thread ended on a broken control stream)."""
+        with self._qcond:
+            while (self._queue or self._map_busy) and not self._map_broken:
+                self._qcond.wait()
+
     def finish(self, wait_lc: bool = True):
         """BlockUntilMappingIsFinished: drain the mapping queue and fold in a
         deferred keyframe finalization; with `wait_lc` also drain the
-        loop-closure worker and apply a correction it left (the mapping
-        thread is idle at this barrier, so applying here cannot race a
-        keyframe step). `wait_lc=False` leaves the worker running: loop
-        closure is a background service, and a throughput measurement need
-        not block on it. No-op in sequential mode."""
+        loop-closure worker and apply the newest correction it left (the
+        mapping thread is idle at this barrier, so applying here cannot race
+        a keyframe step; every rank of a mesh has the same corrections
+        here). `wait_lc=False` leaves the worker running: loop closure is a
+        background service, and a throughput measurement need not block on
+        it. No-op in sequential mode."""
         if self.sequential:
             return
-        with self._qcond:
-            while self._queue or self._map_busy:
-                self._qcond.wait()
+        if self._follower:
+            self._recv_frame(R_FINISH)
+        else:
+            self._send_frame(R_FINISH)
+        self._wait_mapping_idle()
         if self._map_exc is None:
             self._finalize_pending_kf()
         if wait_lc and self._lc_thread is not None:
@@ -904,7 +1211,31 @@ class SLAMSystem:
     def close(self):
         """Stop and join the mapping thread and the loop-closure worker
         (after finish()), then flush and close the metrics stream. Raises an
-        exception of either thread that was not raised yet."""
+        exception of either thread that was not raised yet. On a mesh, rank
+        0 first sends its end mark, which a follower still waiting for a
+        record raises on, and which every follower's close takes."""
+        try:
+            if self._trk is not None and not self._trk_ended:
+                if self._follower:
+                    self._end_of_stream()
+                else:
+                    self._send_frame(R_END)
+        finally:
+            self._stop_threads()
+        self._raise_thread_excs()
+
+    def _end_of_stream(self):
+        """A follower's close: rank 0's records up to its end mark (records
+        this rank did not replay, after a failure here, are passed over)."""
+        while True:
+            rec = self._trk.recv()
+            if rec["kind"] == R_END:
+                self._trk_ended = True
+                return
+            if rec["fit"]:
+                self._trk.recv_tensors("cpu")
+
+    def _stop_threads(self):
         try:
             if self._map_thread is not None:
                 with self._qcond:
@@ -923,7 +1254,6 @@ class SLAMSystem:
                 if self._metrics_f is not None:
                     self._metrics_f.close()
                     self._metrics_f = None
-        self._raise_thread_excs()
 
     @staticmethod
     def _join(thread, what):
@@ -1231,24 +1561,26 @@ class SLAMSystem:
         self.imm = self.imm._replace(trace=tr)
 
     # ------------------------------------------------------------- keyframe
-    def _add_keyframe(self, shell: Shell, pyr, grads, defer: bool = False):
+    def _add_keyframe(self, shell: Shell, pyr, grads, defer: bool = False, inputs=None):
         """AddKeyframe: host policy on the mirrors, the keyframe step, the
         tracker reference published at once, then the bundle-dependent
-        finalization (left pending when `defer`, after the init gates)."""
+        finalization (left pending when `defer`, after the init gates).
+        `inputs`: _kf_inputs() as the mapping thread's step read them (None:
+        read now)."""
         cfg = self.cfg
         F = cfg.max_frames
         t0 = _time.perf_counter()
+        ref_slot, iw_scale, resync = self._kf_inputs() if inputs is None else inputs
         shell.is_kf = True
         shell.kf_id = self.next_kf_id
         self.next_kf_id += 1
         if shell.tracking_ref is not None:
             with self._shell_lock:
                 shell.cam_to_world = self.shells[shell.tracking_ref].cam_to_world @ shell.cam_to_ref
-        if self._pc_window_resync:
+        if resync is not None:
             # the first photometric fit landed since the last keyframe: this
             # thread owns the window here
-            self._pc_window_resync = False
-            inv_resp, inv_vig, _ = self._pc_luts
+            inv_resp, inv_vig, _ = resync[1]
             pts, imm = self.window.points, self.imm
             images, imm_c, pts_c = self._pc_resync_state(
                 self.window.frames.images, imm.color, imm.u, imm.v, pts.color, pts.u, pts.v,
@@ -1273,18 +1605,11 @@ class SLAMSystem:
             iters = 15
         sel_u, sel_v, sel_type, sel_valid = self._select_px(
             self.selector_pot, pyr[0], grads, int(cfg.desired_immature_density), shell.id)
-        # indirect-weight schedule: lean on the geometric terms (up to 3x)
-        # when the photometric tracker runs worse than its own baseline
-        if cfg.indirect_weight_schedule and self.first_coarse_rmse > 0:
-            iw_scale = float(np.clip(
-                self.last_coarse_rmse[0] / max(self.first_coarse_rmse, 1e-6), 1.0, 3.0))
-        else:
-            iw_scale = 1.0
         Twc = np.linalg.inv(shell.cam_to_world)
         window, calib, imm, feats, template, _result, bundle = KS.kf_step(
             self.window, self.calib, self.imm, self.feats, pyr, self._f32(Twc[:3, :3]),
             self._f32(Twc[:3, 3]), self._f32(shell.aff), self._f32(shell.exposure or 1.0),
-            slot, shell.kf_id, self.ref_slot, flag_mask, float(self.current_min_act_dist),
+            slot, shell.kf_id, ref_slot, flag_mask, float(self.current_min_act_dist),
             iters, sel_u, sel_v, sel_type, sel_valid, cfg, ind_w_scale=iw_scale,
             mesh=self.dist_mesh)
         self.window, self.calib, self.imm, self.feats = window, calib, imm, feats
@@ -1444,20 +1769,24 @@ class SLAMSystem:
         entry = (shell.kf_id, shell.id, desc, u, v, valid, shell.cam_to_world.copy(),
                  kp_idepth, kp_depth_ok)
         exclude = self._connected_kf_ids(shell.kf_id)
+        # the intrinsics as this keyframe step left them: the worker must not
+        # read the calibration a later step is rewriting
+        fx, fy, cx, cy = self.calib.value.cpu().numpy().astype(np.float64)
+        K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
         if self._lc_thread is None:
-            corr = self._lc_process(entry, exclude)
+            corr = self._lc_process(entry, exclude, K)
             if corr is not None:
                 self._apply_loop_correction(corr)
         else:
             with self._lc_cond:
-                self._lc_queue.append((entry, exclude))
+                self._lc_queue.append((entry, exclude, K))
                 self._lc_cond.notify_all()
 
-    def _lc_process(self, entry, exclude_kfs):
+    def _lc_process(self, entry, exclude_kfs, K):
         """Vocabulary bootstrap, BoW detection and pose-graph correction for
-        one keyframe entry. Returns the correction {shell_id: cam_to_world}
-        or None. Runs on the caller's or the mapping thread (sequential) or
-        on the loop-closure worker."""
+        one keyframe entry (K: the 3x3 intrinsics). Returns the correction
+        {shell_id: cam_to_world} or None. Runs on the caller's or the
+        mapping thread (sequential) or on the loop-closure worker."""
         if self.loop_closer is None:
             desc, valid = (x.cpu().numpy() for x in (entry[2], entry[5]))
             self._vocab_descs.append(desc[valid])
@@ -1479,8 +1808,6 @@ class SLAMSystem:
 
         closer = self.loop_closer
         closer.add_keyframe(*entry[:7], kp_idepth=entry[7], kp_depth_ok=entry[8])
-        fx, fy, cx, cy = self.calib.value.cpu().numpy().astype(np.float64)
-        K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
         t_lc = _time.perf_counter()
         loop = closer.detect(len(closer.entries) - 1, K, exclude_kfs=exclude_kfs)
         self.lc_detect_ms.append(1e3 * (_time.perf_counter() - t_lc))
@@ -1494,39 +1821,63 @@ class SLAMSystem:
 
     def _lc_loop(self):
         """Loop-closure worker: consumes keyframe entries, computes
-        corrections and leaves them in _pending_loop_corr for the mapping
-        thread to apply between keyframe steps; replacing the window must
-        never race a kf_step."""
+        corrections and leaves them, numbered in order, in _lc_corrs for
+        the mapping thread to apply between keyframe steps; replacing the
+        window must never race a kf_step. It reads nothing but its entries
+        (made by the mapping thread, which runs in lockstep on a mesh), so
+        every rank's worker makes the same corrections."""
         while True:
             with self._lc_cond:
                 while not self._lc_queue and not self._lc_stop:
                     self._lc_cond.wait()
                 if self._lc_stop and not self._lc_queue:
                     return
-                entry, exclude = self._lc_queue.popleft()
+                item = self._lc_queue.popleft()
                 self._lc_busy = True
             try:
-                corr = self._lc_process(entry, exclude)
+                corr = self._lc_process(*item)
                 if corr is not None:
-                    with self._lc_corr_lock:
-                        # over an unapplied older correction: the new
-                        # relaxation already includes its effect (correct()
-                        # updated the entry poses)
-                        self._pending_loop_corr = corr
+                    with self._lc_corr_cond:
+                        self._lc_n_corrs += 1
+                        self._lc_corrs[self._lc_n_corrs] = corr
+                        self._lc_corr_cond.notify_all()
             except Exception as e:        # raised by finish or close
                 self._lc_exc = e
+                with self._lc_corr_cond:
+                    self._lc_corr_cond.notify_all()
             finally:
                 with self._lc_cond:
                     self._lc_busy = False
                     self._lc_cond.notify_all()
 
+    def _newest_loop_corr(self) -> int:
+        """The number of the newest correction not yet applied, else -1."""
+        with self._lc_corr_cond:
+            return max(self._lc_corrs, default=-1)
+
+    def _apply_loop_corr_number(self, k: int):
+        """On the mapping thread: fold in the worker's k-th correction
+        (waiting for it on a follower) and forget the older unapplied ones:
+        the k-th relaxation already includes their effect (correct() updated
+        the entry poses)."""
+        with self._lc_corr_cond:
+            if not self._lc_corr_cond.wait_for(
+                    lambda: k in self._lc_corrs or self._lc_exc is not None,
+                    timeout=REPLAY_TIMEOUT_S):
+                raise TimeoutError(f"loop correction {k} never came from this rank's worker")
+            if k not in self._lc_corrs:
+                raise RuntimeError(f"the loop-closure worker failed before correction {k}")
+            corr = self._lc_corrs.pop(k)
+            for j in [j for j in self._lc_corrs if j < k]:
+                del self._lc_corrs[j]
+        self._apply_loop_correction(corr)
+
     def _apply_pending_loop_corr(self):
-        """On the mapping thread (or at the finish barrier): fold in a
-        correction the worker computed."""
-        with self._lc_corr_lock:
-            corr, self._pending_loop_corr = self._pending_loop_corr, None
-        if corr is not None:
-            self._apply_loop_correction(corr)
+        """At the finish barrier (mapping thread and worker idle): fold in
+        the newest correction the worker left, if any."""
+        k = self._newest_loop_corr()
+        if k >= 0:
+            self._apply_loop_corr_number(k)
 
     def _apply_loop_correction(self, by_shell: dict):
         """Re-anchor trajectory and window after a pose-graph correction.

@@ -4,10 +4,21 @@ Execution model. The JAX package drives a mesh from one controller: one
 `shard_map` over the devices of one process. torch.distributed runs one
 process per rank, so the port is SPMD:
 
-  * Replicated host policy. Every rank builds the same `SLAMSystem`, feeds
-    it the same frames and runs the same host policy. Random draws come
-    from seeded `torch.Generator`s, so the window, the tracker and every
-    keyframe decision are the same on every rank.
+  * Replicated host policy (the sequential entry). Every rank builds the
+    same `SLAMSystem`, feeds it the same frames and runs the same host
+    policy. Random draws come from seeded `torch.Generator`s, so the window,
+    the tracker and every keyframe decision are the same on every rank.
+  * Rank 0's decisions (the threaded entries, `sequential=False`). Which
+    frame the mapping thread keyframes, traces or drops, when a new tracker
+    reference or a loop correction lands, and when a calibration fit
+    reaches the window all depend on thread timing, which differs between
+    processes. So rank 0 plays the JAX package's one controller: it tracks
+    and decides, and sends each decision as a record on a Gloo group of
+    each thread's own (`distributed.Channel`); the other ranks build their
+    own pyramids, track nothing, and replay the records in order, so their
+    collectives come in rank 0's order and their shells get rank 0's bits.
+    The loop-closure worker takes its entries from the mapping thread in
+    that order, and needs no record.
   * Point shards. At a sharded call rank r takes the contiguous block
     [r P/n, (r+1) P/n) of the window's points, the blocks of the JAX
     package's `P("points")` (hslam_tpu/parallel/dist_ba.py:31-41), and

@@ -16,6 +16,9 @@
     writes its block into zeros of the full size and the sum is exact
     (x + 0 = x; a -0.0 comes back as +0.0). Gloo has no all_gather for CUDA
     tensors, only all_reduce and broadcast.
+  * `Channel`: records from a mesh's rank 0 to its other ranks, on a Gloo
+    group of its own: how the threaded SLAMSystem entries make each
+    timing-dependent decision once (rank 0) and replay it everywhere else.
   * `run_ranks(fn, n)` spawns n processes, brings a group up in each over a
     file rendezvous and calls fn(mesh, *args) on every rank.
 
@@ -31,6 +34,7 @@ import time
 import traceback
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -167,6 +171,90 @@ def all_gather(x, mesh: Mesh | None):
             out[i] = full.bool() if t.dtype == torch.bool else full
             off += k
     return out[0] if isinstance(x, torch.Tensor) else out
+
+
+# ------------------------------------------------------------- control
+class Channel:
+    """One-way control records from rank 0 of `mesh` to its other ranks.
+
+    A record is a fixed layout of named fields (`fields`: (name, shape)
+    pairs) packed into one float64 host tensor, one broadcast each: ints up
+    to 2**53, bools and float32 values are exact in float64. `send` (rank 0)
+    and `recv` (the others) must be called the same number of times in the
+    same order on every rank. `send_tensors` / `recv_tensors` carry a list
+    of tensors of any shapes and dtypes (through the host, bit for bit).
+
+    Each channel has a Gloo group of its own, even in an NCCL world: a
+    record never touches the card or waits on a CUDA sync, and two threads
+    never issue collectives on one group. Making one is a collective call:
+    every rank of the world makes its channels in the same order. Counts
+    its broadcasts and the host seconds spent in them. Without a mesh there
+    is no transport (a subclass brings one: the tests' scripted channels)."""
+
+    def __init__(self, fields: Sequence[tuple], mesh: Mesh | None = None):
+        self.fields = tuple((name, tuple(shape)) for name, shape in fields)
+        self._slices, off = {}, 0
+        for name, shape in self.fields:
+            n = int(np.prod(shape, dtype=np.int64))
+            self._slices[name] = slice(off, off + n)
+            off += n
+        self.numel = off
+        self.n_broadcasts = 0
+        self.seconds = 0.0
+        self.group, self.src, self.leader = None, 0, True
+        if mesh is not None:
+            ranks = dist.get_process_group_ranks(mesh.group)
+            self.group = dist.new_group(ranks, backend="gloo")
+            self.src, self.leader = ranks[0], mesh.rank == 0
+
+    def pack(self, **values) -> torch.Tensor:
+        """The record as one float64 tensor; every field must be given."""
+        if set(values) != set(self._slices):
+            raise KeyError(f"record fields {sorted(values)} != {sorted(self._slices)}")
+        buf = torch.empty(self.numel, dtype=torch.float64)
+        for name, shape in self.fields:
+            v = np.asarray(values[name], np.float64)
+            if v.shape != shape:
+                raise ValueError(f"record field {name}: shape {v.shape}, want {shape}")
+            buf[self._slices[name]] = torch.from_numpy(v.reshape(-1))
+        return buf
+
+    def unpack(self, buf: torch.Tensor) -> dict:
+        """Field name -> float (shape ()) or float64 array."""
+        a = buf.numpy()
+        return {name: (float(a[self._slices[name]][0]) if shape == ()
+                       else a[self._slices[name]].reshape(shape).copy())
+                for name, shape in self.fields}
+
+    def send(self, **values) -> None:
+        self._bcast(self.pack(**values))
+
+    def recv(self) -> dict:
+        buf = torch.empty(self.numel, dtype=torch.float64)
+        self._bcast(buf)
+        return self.unpack(buf)
+
+    def send_tensors(self, tensors) -> None:
+        self._bcast_objects([[t.detach().cpu() for t in tensors]])
+
+    def recv_tensors(self, device) -> list:
+        box = [None]
+        self._bcast_objects(box)
+        return [t.to(device) for t in box[0]]
+
+    def _bcast(self, buf: torch.Tensor) -> None:
+        t0 = time.perf_counter()
+        dist.broadcast(buf, self.src, group=self.group)
+        self._count(t0)
+
+    def _bcast_objects(self, box: list) -> None:
+        t0 = time.perf_counter()
+        dist.broadcast_object_list(box, self.src, group=self.group)
+        self._count(t0)
+
+    def _count(self, t0: float) -> None:
+        self.n_broadcasts += 1
+        self.seconds += time.perf_counter() - t0
 
 
 # --------------------------------------------------------------- launcher

@@ -4,8 +4,8 @@ refinement: (a) the sequential entry against the JAX package's outcome on
 the same frames (recorded here; a slow test runs the JAX package live and
 checks the record), (b) the pipelined entry with the mapping thread under a 3x
 input skip, (c) the kidnapped camera that only relocalization recovers,
-(d) the option that stays refused (the mapping thread on a mesh of more
-than one rank), and how the mapping thread reports
+(d) the constructor of the mapping thread's entry on a mesh of more than
+one rank, and how the mapping thread reports
 failures, (e) the metrics stream through both entries, (f) loop closure in the system: the worker thread live in the
 pipelined run, the online vocabulary bootstrap, the connectivity map
 against the JAX package's, and a large gauge correction of the window.
@@ -223,16 +223,25 @@ def mesh1(tmp_path_factory):
 @pytest.mark.parametrize("kwargs", [dict(dist_mesh=2)], ids=["dist_mesh"])
 def test_hybrid_config_still_refuses(kwargs, mesh1):
     """The entry with the mapping thread on a mesh of more than one rank
-    (C15): its keyframe choice depends on thread timing, so ranks would
-    diverge and deadlock in their collectives. A world of one runs it."""
+    (C15, repaired): the constructor accepts it and, as rank 0, gets the
+    tracking and the mapping thread a control channel each, on Gloo groups
+    of their own; its close sends the two end marks. A world of one makes no
+    channel and sends nothing (tests/test_torch_lockstep.py replays)."""
     kw = dict(enable_loop_closure=False, sequential=False)
     two = copy.copy(mesh1)
-    two.size = kwargs["dist_mesh"]       # what a mesh of two ranks reports
-    with pytest.raises(NotImplementedError, match="sequential=False"):
-        SLAMSystem(FX, FX, CX, CY, W, H, Config(**CFG_KW), device="cpu", dist_mesh=two, **kw)
+    two.size = kwargs["dist_mesh"]       # what rank 0 of a mesh of two reports
+    slam = SLAMSystem(FX, FX, CX, CY, W, H, Config(**CFG_KW), device="cpu", dist_mesh=two, **kw)
+    try:
+        assert slam._trk is not None and slam._map is not None and not slam._follower
+        assert slam._trk.leader and slam._trk.group is not slam._map.group
+        assert slam._trk.group is not None and slam._map.group is not None
+    finally:
+        slam.close()
+    assert (slam._trk.n_broadcasts, slam._map.n_broadcasts) == (1, 1)
     slam = SLAMSystem(FX, FX, CX, CY, W, H, Config(**CFG_KW), device="cpu",
                       dist_mesh=mesh1, **kw)
     slam.close()
+    assert slam._trk is None and slam._map is None
 
 
 def test_mapping_thread_exception_reaches_caller(monkeypatch):
