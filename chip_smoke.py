@@ -13,7 +13,8 @@ Phases (each failure is fatal; nothing falls back to the CPU):
      levels) in turns with the per-level kernel and the plain version: the
      call (CUDA events around the wrapper) and the kernels alone (spans of
      back-to-back launches, warm and with a 64 MB write before each), held
-     against the memory bound;
+     against the memory bound; the same for the long run's call (96x128
+     float32, 3 levels, phase 17);
   4. device parity: the coarse tracker and one windowed BA from the same
      state on CUDA and on the CPU;
   5. the direct-only path: SLAMSystem.process_frame on the card over 60
@@ -76,12 +77,22 @@ Phases (each failure is fatal; nothing falls back to the CPU):
      tools/eval_baseline (configs 2 and 3, pipelined), held to the JAX
      package's keyframes and ATE; per frame the loader's wait, or the
      inline decode, correction + remap and host round trip, and
-     process_frame;
+     process_frame; then the TUM fixture through run_sequence
+     --online-calib (frames remapped only, the calibrator fitting response
+     and vignette), through the loader and inline: phase 12's calibration
+     bars, the fit count and ms per fit, the same keyframes on both;
  16. the tools: drive_synthetic, profile_kf at 640x480 with a profiler
      trace, train_vocab on generated scenes loaded into SLAMSystem,
      make_synthetic_dataset then run_sequence on it, and loop_debug over
      phase 11's 326 frames through the pipelined entry with the
-     loop-closure worker live, held to the JAX package's pipelined outcome.
+     loop-closure worker live, held to the JAX package's pipelined outcome;
+ 17. the long run: tests/test_longrun.py's 500-frame drift check (a slow
+     sweep over tests/test_system.py's 96x128 plane under an exposure
+     flicker), rendered on the card from io/synthetic's copy of the scene,
+     through the sequential system with its Config and loop closure, held
+     to its bars (never lost, more than 50 keyframes and loop-closure
+     entries, ATE under 0.20), with fps, process_frame p50/p95 and the
+     JAX package's outcome beside them.
 
 Prints a JSON kernel table on the line before the last, and as the last
 line {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -125,12 +136,18 @@ JAX_CPU_PHOTOCAL = dict(frames=72, ate_off=0.007532983677308477, valid_off=72, k
 # test_dataset_slice_matches_jax_at_sensor_size), keyframed frames and ATE;
 # and eval_baseline's pipelined configs 2 (TUM) and 3 (EuRoC), correction
 # first (C17), their ATE over three reruns (test_run_config_jax_reference_
-# at_sensor_size; the keyframes move with thread timing, C7)
+# at_sensor_size; the keyframes move with thread timing, C7); and the JAX
+# script's dataset branch with --online-calib on the TUM fixture (Config(),
+# frames remapped only; tests/test_torch_online_calib.py::
+# test_online_calib_dataset_branch_against_the_jax_script[sensor]), with its
+# fitted response's RMS error against the fixture's gamma 0.7 in levels
 JAX_CPU_DATASET = {
     "euroc": dict(sha256="8e684081692b008861c6441e1eee10b2463aba3cb8fbb67726699738a429a04a",
                   kf_frames=[0, 5, 14, 35, 57], ate=0.002779311708224512),
     "tum": dict(sha256="f362a6e8c4b146f240680aa6c182981174aeb2df35c83b6bcb07d36059dbdf4c",
                 kf_frames=[0, 10, 25, 34, 44, 55], ate=0.007449207950828182),
+    "tum_online": dict(kf_frames=[0, 10, 23, 34, 44, 55], ate=0.007432976913404848,
+                       response_err=6.1620317942291525),
     "config2": dict(ate_min=0.0075609987571244345, ate_max=0.0075609987571244345,
                     keyframes=7),
     "config3": dict(ate_min=0.0029498731546208617, ate_max=0.0029498731546208617,
@@ -152,6 +169,17 @@ JAX_CPU_LOOP_DEBUG = dict(valid=326, ate_min=0.12712647885699854, ate_max=0.1623
 # the port on the CPU: [0, 9, 26, 35, 45, 59], ATE 0.0728)
 JAX_CPU_SYNTH = dict(sha256="2a82e690b36f3033bd72799ce4809257e1a3b4921119421c67688f9e727b5006",
                      kf_frames=[0, 10, 27, 35, 44, 59], ate=0.07577175173288406)
+# the same package over phase 17's 500 frames (tests/test_longrun.py's
+# sweep, its Config, sequential, loop closure on the shipped vocabulary;
+# tests/test_torch_longrun.py::test_longrun_jax_reference, which checks this
+# copy): keyframes, loop-closure entries, loops closed, verified below
+# significance, valid poses, ATE over every frame
+LONGRUN_CFG = dict(max_frames=6, max_points=512, max_immature=512, max_features=512,
+                   pyr_levels=3, init_min_matches=50, init_ransac_iters=100,
+                   desired_point_density=400.0, desired_immature_density=300.0,
+                   tracker_iters_per_level=(6, 10, 10))
+JAX_CPU_LONGRUN = dict(frames=500, valid=500, keyframes=84, entries=83, loops_closed=2,
+                       verified_insignificant=0, ate=0.09761475765813628)
 # numbers one phase hands to a later one (phase 7's fps to phase 14)
 RESULTS: dict = {}
 LEVEL_ATOL = 1e-4            # tests/test_pallas.py: 0.25*sum vs mean, f32 order
@@ -408,7 +436,8 @@ def phase_kernel():
         f"share_of_bound {share_f:.4f} warm, {bound_f / dev_f_cold:.4f} cold")
     if not 0.0 < share_f <= 1.0:
         raise AssertionError(f"float32 share_of_bound {share_f} is not in (0, 1]")
-    return dict(max_abs_err=worst, ms=device_ms, call_ms=call_ms["fused"],
+    small = _small_pyramid_case(g, buf, flush)
+    return dict(max_abs_err=max(worst, small.pop("max_abs_err")), ms=device_ms, call_ms=call_ms["fused"],
                 device_ms=device_ms, device_ms_cold=device_ms_cold, bound_ms=bound_ms,
                 bound_by="bytes", share_of_bound=share, per_level_ms=call_ms["per_level"],
                 per_level_device_ms=dev_ms["per_level"][0], plain_ms=call_ms["plain"],
@@ -416,7 +445,55 @@ def phase_kernel():
                 f32_gamma_call_ms=min(t for k, t in call_f if k == "fused"),
                 f32_gamma_device_ms=dev_f, f32_gamma_device_ms_cold=dev_f_cold,
                 f32_gamma_bound_ms=bound_f, f32_gamma_share_of_bound=share_f,
-                f32_gamma_plain_ms=min(t for k, t in call_f if k == "plain"))
+                f32_gamma_plain_ms=min(t for k, t in call_f if k == "plain"), **small)
+
+
+def _small_pyramid_case(g, buf, flush):
+    """The long run's call (phase 17): a float32 96x128 frame in [0, 255]
+    (rendered, times the flicker gain, clipped), 3 levels, no gamma weight:
+    held against the plain version, then timed as the main path's call is."""
+    from hslam_tpu_torch.io import synthetic as syn
+    from hslam_tpu_torch.ops import pyramid as P
+    H, W, n = syn.SWEEP_H, syn.SWEEP_W, LONGRUN_CFG["pyr_levels"]
+    frame = (torch.rand((H, W), generator=g) * 255.0).cuda()
+    lv, gr = P.build_direct_pyramid(frame, n)
+    lp, gp = P.build_direct_pyramid_plain(frame, n)
+    torch.cuda.synchronize()
+    for a, b in zip(gr, gp):
+        torch.testing.assert_close(a, b, rtol=G2_RTOL, atol=G2_ATOL)
+    err = max(float((a - b).abs().max()) for a, b in zip(lv + gr, lp + gp))
+    err_lv = max(float((a - b).abs().max()) for a, b in zip(lv, lp))
+    if not err_lv <= LEVEL_ATOL:
+        raise AssertionError(f"96x128 pyramid levels differ by {err_lv} > {LEVEL_ATOL}")
+    lay = P.pyramid_layout(H, W, n)
+    n_bytes = frame.numel() * 4 + 16 * sum(h * w for h, w in lay.shapes)
+    bound = 1e3 * n_bytes / H100_BYTES_PER_S
+    runs = {"plain": lambda: P.build_direct_pyramid_plain(frame, n),
+            "fused": lambda: P.build_direct_pyramid(frame, n)}
+    call = [(k, _cuda_ms(runs[k])) for k in ("plain", "fused", "fused", "plain")]
+
+    def fused_into():
+        P.launch_pyramid(frame, buf, n)
+
+    for _ in range(20):
+        fused_into()
+    warm = [_span_ms(fused_into, 200) for _ in range(5)]
+    flush_only = [_span_ms(lambda: flush.fill_(1), 200) for _ in range(5)]
+    cold = [_span_ms(lambda: (flush.fill_(1), fused_into()), 200) for _ in range(5)]
+    dev = float(np.median(warm))
+    dev_cold = float(np.median(cold)) - float(np.median(flush_only))
+    log(f"[kernel] long run's call, 96x128 float32 in [0, 255], 3 levels: max|d| {err:.3g} "
+        f"(levels {err_lv:.3g}, tol {LEVEL_ATOL:g}); call_ms in turns "
+        + " ".join(f"{k} {t:.4f}" for k, t in call)
+        + f"; device_ms {dev:.5f} ({' '.join(f'{t:.5f}' for t in warm)}), device_ms_cold "
+        f"{dev_cold:.5f}; bound_ms {bound:.6f} ({n_bytes} B at 3.35 TB/s); share_of_bound "
+        f"{bound / dev:.4f} warm")
+    if not 0.0 < bound / dev <= 1.0:
+        raise AssertionError(f"96x128 share_of_bound {bound / dev} is not in (0, 1]")
+    return dict(max_abs_err=err, small_96x128_l3_call_ms=min(t for k, t in call if k == "fused"),
+                small_96x128_l3_plain_ms=min(t for k, t in call if k == "plain"),
+                small_96x128_l3_device_ms=dev, small_96x128_l3_device_ms_cold=dev_cold,
+                small_96x128_l3_bound_ms=bound, small_96x128_l3_share_of_bound=bound / dev)
 
 
 def _small_state():
@@ -1495,13 +1572,14 @@ def _median_ms(fn, reps=3):
     return float(np.median([_timed(fn)[1] for _ in range(reps)]))
 
 
-def _p14_pipelined(mesh, frames, sleep_rank=None):
+def _p14_pipelined(mesh, frames, sleep_rank=None, ckpt=None):
     """Phase 7's main path on this rank of `mesh`: the default hybrid system
     with loop closure and dist_mesh, through process_frame_pipelined,
     flush_pipeline and finish; `sleep_rank`'s mapping thread sleeps 0.1 s
     before each step. On two ranks rank 0 tracks and decides and rank 1
     replays. The pyramid counts are set to 0 just before the run and read
-    just after it."""
+    just after it. With `ckpt` (a path), the rank then saves its state
+    there (io/checkpoint)."""
     from hslam_tpu_torch.models.system import SLAMSystem
     from hslam_tpu_torch.ops import pyramid as P
     H, W, FX = 480, 640, 320.0
@@ -1527,6 +1605,9 @@ def _p14_pipelined(mesh, frames, sleep_rank=None):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t_all
         launches, plain = P.kernel_launches, P.plain_calls
+        if ckpt is not None:
+            from hslam_tpu_torch.io.checkpoint import save_state
+            save_state(ckpt, slam)
     finally:
         slam.close()
     channels = {k: None if c is None else (c.n_broadcasts, c.seconds)
@@ -1598,9 +1679,10 @@ def _p14_world_of_one(mesh, wnd, calib, cfg, marg, pg_args, frames):
                 pipelined=_p14_pipelined(mesh, frames))
 
 
-def _p14_two_ranks(mesh, wnd, cond, calib, cfg, marg, pg_args, gba, frames):
+def _p14_two_ranks(mesh, wnd, cond, calib, cfg, marg, pg_args, gba, frames, ckpt_dir):
     """(b), on each of two ranks over Gloo, both on the one card: the
-    sharded calls, then the system over the arc with dist_mesh."""
+    sharded calls, then the system over the arc with dist_mesh; each
+    pipelined run's state saved into `ckpt_dir` by each rank."""
     from hslam_tpu_torch.models import pose_graph as PG
     from hslam_tpu_torch.models.system import SLAMSystem
     from hslam_tpu_torch.ops import pyramid as P
@@ -1657,9 +1739,20 @@ def _p14_two_ranks(mesh, wnd, cond, calib, cfg, marg, pg_args, gba, frames):
     slam.close()
     # the pipelined main path in lockstep (rank 0 decides, rank 1 replays),
     # then again with rank 1's mapping thread slowed
-    out["pipelined"] = _p14_pipelined(mesh, frames)
-    out["pipelined_sleep"] = _p14_pipelined(mesh, frames, sleep_rank=1)
+    for key, sleep_rank in (("pipelined", None), ("pipelined_sleep", 1)):
+        out[key] = _p14_pipelined(mesh, frames, sleep_rank,
+                                  os.path.join(ckpt_dir, f"{key}_rank{mesh.rank}.npz"))
     return out
+
+
+def _same_checkpoint_files(a, b):
+    """(keys, arrays that differ) between two io/checkpoint files: each
+    array, __meta__ included, compared by dtype, shape and bytes."""
+    da, db = np.load(a), np.load(b)
+    diff = sorted(k for k in set(da.files) | set(db.files)
+                  if k not in da.files or k not in db.files or da[k].dtype != db[k].dtype
+                  or da[k].shape != db[k].shape or da[k].tobytes() != db[k].tobytes())
+    return len(da.files), diff
 
 
 def phase_distributed(card):
@@ -1670,6 +1763,7 @@ def phase_distributed(card):
     single-process system run; (c) dryrun_multichip(2). Each rank is a
     spawned process; a rank that fails or hangs fails the phase."""
     from hslam_tpu_torch.config import CPARS
+    from hslam_tpu_torch.io.checkpoint import load_state
     from hslam_tpu_torch.io.synthetic import Scene, make_sequence
     from hslam_tpu_torch.io.trajectory import ate_rmse
     from hslam_tpu_torch.models import optimizer as O
@@ -1752,8 +1846,10 @@ def phase_distributed(card):
         failures.append("(a) a world of one made control channels")
 
     # (b) two ranks over Gloo, both on the card
+    import tempfile
+    ckpt_dir = tempfile.mkdtemp(prefix="p14_ckpt_")
     r0, r1 = run_ranks(_p14_two_ranks, 2, args=(cpu(wnd), cpu(cond), cpu(calib), cfg, marg,
-                                                pg_args, gba, frames),
+                                                pg_args, gba, frames, ckpt_dir),
                        backend="gloo", timeout=900)
     same = all(np.array_equal(x, y) for k in ("ba", "ba_raw", "marginalize", "pcg", "global_ba")
                for x, y in zip(r0[k], r1[k]))
@@ -1860,6 +1956,25 @@ def phase_distributed(card):
             f"{p0['lc_entries']} / {p1['lc_entries']}, loops closed {p0['loops']} / {p1['loops']}; "
             f"pyramid launches {p0['launches']} (= {SEQ_FRAMES} + {p0['retries']} retries) / "
             f"{p1['launches']}, plain {p0['plain'] + p1['plain']}")
+        # C21: the follower holds rank 0's tracking reference, so its
+        # checkpoint is rank 0's, array for array; each file loads back
+        files = [os.path.join(ckpt_dir, f"{key}_rank{r}.npz") for r in (0, 1)]
+        n_keys, diff = _same_checkpoint_files(*files)
+        restored = []
+        for f in files:
+            sys_ = SLAMSystem(FX, FX, W / 2 - 0.5, H / 2 - 0.5, W, H, cfg,
+                              enable_loop_closure=False)
+            load_state(f, sys_)
+            restored.append(_state_leaves(sys_))
+        same_load = restored[0].keys() == restored[1].keys() and all(
+            torch.equal(restored[0][k], restored[1][k]) for k in restored[0])
+        log(f"[distributed] (b) {key} save_state on each rank: {n_keys} arrays, "
+            f"{os.path.getsize(files[0])} / {os.path.getsize(files[1])} B; arrays that differ "
+            f"(__meta__ included) {diff}; both load into fresh systems alike: {same_load} "
+            f"({len(restored[0])} tensors)")
+        if diff or not same_load:
+            failures.append(f"(b) {key}: rank 1's checkpoint differs from rank 0's in {diff} "
+                            f"(loaded alike: {same_load})")
         log(f"[distributed] (b) {key} control broadcasts (host clock, ranks 0 / 1): tracking "
             f"{t0n} ({t0n / SEQ_FRAMES:.2f} per frame, {1e3 * t0s / SEQ_FRAMES:.3f} / "
             f"{1e3 * t1s / SEQ_FRAMES:.3f} ms per frame), mapping {m0n} ({m0n - 1} steps and the "
@@ -1868,6 +1983,8 @@ def phase_distributed(card):
     if launches != builds or plain != 0:
         failures.append(f"single process: pyramid launches {launches}, plain {plain}")
 
+    import shutil
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
     # (c) the multi-rank self-check
     msg = dryrun_multichip(2, device="cuda")
     log(f"[distributed] (c) {msg}")
@@ -1905,6 +2022,69 @@ def _correction_gaps(root):
     return tuple(raw.shape), float((out[0] - out[1]).abs().max()), gap, ok
 
 
+def _online_calib_run(card, root, gt, tmp, extra, failures):
+    """Phase 15 (d): run_sequence --online-calib on the TUM fixture (the
+    frames remapped, not corrected), held to the bars of the TUM run and of
+    phase 12's calibration; each fit recorded, then redone synchronised for
+    its ms. Returns the keyframed frames and the pyramid launches."""
+    from hslam_tpu_torch.io.trajectory import associate, evaluate_ate, read_tum
+    from hslam_tpu_torch.models import photo_calib as PC
+    from hslam_tpu_torch.models.system import SLAMSystem
+    from hslam_tpu_torch.ops import pyramid as P
+    from hslam_tpu_torch.tools import run_sequence as RS
+    fits, real_fit = [], SLAMSystem._pc_fit
+
+    def recording_fit(self, *args, **kw):
+        fits.append((self, args, kw))
+        return real_fit(self, *args, **kw)
+
+    out = os.path.join(tmp, "traj_tum_online.txt")
+    SLAMSystem._pc_fit = recording_fit
+    try:
+        P.kernel_launches = 0
+        P.plain_calls = 0
+        res = RS.run(RS.parse_args(["--dataset", root, "--out", out, "--online-calib"] + extra))
+        launches, plain = P.kernel_launches, P.plain_calls
+    finally:
+        SLAMSystem._pc_fit = real_fit
+    slam, ref = res.system, JAX_CPU_DATASET["tum_online"]
+    slam.close()
+    n = res.n_frames
+    fit_ms = [_timed(lambda: real_fit(obj, *args, **kw))[1] for obj, args, kw in fits]
+    ate = evaluate_ate(gt, out)
+    matched = len(associate(read_tum(gt)[0], read_tum(out)[0]))
+    valid = sum(s.pose_valid for s in slam.shells)
+    kfs = [s.id for s in slam.shells if s.is_kf]
+    bar = max(1.5 * ref["ate"], 0.02)
+    x = np.arange(256.0)
+    truth = 255.0 * (x / 255.0) ** 0.7
+    err_id = float(np.sqrt(np.mean((x - truth) ** 2)))
+    err_est, vm = float("nan"), None
+    if slam._pc_params is not None:
+        lut = PC.gamma_lut(slam._pc_params).cpu().numpy().astype(np.float64)
+        err_est = float(np.sqrt(np.mean((lut - truth) ** 2)))
+        vm = PC.vignette_map(slam._pc_params, slam.height, slam.width).cpu().numpy()
+    centre = vm[slam.height // 2, slam.width // 2] if vm is not None else float("nan")
+    corner = vm[0, 0] if vm is not None else float("nan")
+    tag = "(d) tum --online-calib" + (", inline" if "--no-prefetch" in extra else "")
+    log(f"[dataset] {tag}: {card} | {n} frames in {res.seconds:.2f} s, fps "
+        f"{n / res.seconds:.2f}; per frame {res.times.summary()}")
+    log(f"[dataset] {tag}: valid {valid}/{n} lost {slam.is_lost} keyframes {len(kfs)} at {kfs} "
+        f"(JAX CPU {ref['kf_frames']}); gt matched {matched}; ATE {ate:.6f} (bar {bar:.4f}, JAX "
+        f"CPU {ref['ate']:.6f}); fits {slam.n_photo_fits}, ms per fit (synchronised, again on "
+        f"the run's inputs) {' '.join(f'{t:.1f}' for t in fit_ms)}; response rmse to gamma "
+        f"0.7 {err_est:.3f} levels (identity {err_id:.3f}, bar {0.6 * err_id:.3f}); vignette "
+        f"centre {centre:.5f} corner {corner:.5f}; pyramid launches {launches} plain {plain}")
+    if valid != n or slam.is_lost or len(kfs) < 3 or matched < 55 or not ate <= bar:
+        failures.append(f"{tag}: valid {valid} keyframes {len(kfs)} matched {matched} ATE {ate}")
+    if not (slam.n_photo_fits >= 1 and err_est < 0.6 * err_id and corner < centre):
+        failures.append(f"{tag}: {slam.n_photo_fits} fits, response rmse {err_est}, vignette "
+                        f"corner {corner} centre {centre}")
+    if launches != n or plain != 0:
+        failures.append(f"{tag}: pyramid launches {launches} for {n} frames, plain {plain}")
+    return dict(kf_frames=kfs, launches=launches)
+
+
 def phase_dataset(card):
     """Sequences from disk (phase 15): two fixtures rendered through real
     lenses at their sensors' sizes, (a) EuRoC 752x480 RadTan and (b) TUM
@@ -1914,7 +2094,10 @@ def phase_dataset(card):
     map over HTTP, then the PLY export and the TUM trajectory scored against
     the ground truth; (b) through run_sequence (corrected, then remapped):
     the sequential runs, held to the JAX package's keyframes and ATE; (c)
-    eval_baseline.run_config config 2 on (b) and config 3 on (a), pipelined."""
+    eval_baseline.run_config config 2 on (b) and config 3 on (a), pipelined;
+    (d) (b)'s fixture through run_sequence --online-calib, the loader's and
+    the inline path, held to phase 12's calibration bars and to each other's
+    keyframes."""
     import tempfile
     import urllib.request
     from hslam_tpu_torch.io import synthetic as syn
@@ -2008,6 +2191,15 @@ def phase_dataset(card):
             failures.append(f"(a) viewer records {counts}, cloud {len(xyz)}, PNGs {len(pngs)}")
         # (b) TUM monoVO, photometrically corrected then remapped
         sequential("tum", [])
+        # (d) TUM monoVO with --online-calib: the frames only remapped, the
+        # system fits response, vignette and exposures; through the loader,
+        # then inline
+        online = [_online_calib_run(card, roots["tum"], gt_file("tum"), tmp, extra, failures)
+                  for extra in ([], ["--no-prefetch"])]
+        launches += sum(r["launches"] for r in online)
+        if online[0]["kf_frames"] != online[1]["kf_frames"]:
+            failures.append(f"(d) the loader and inline runs keyframe {online[0]['kf_frames']} "
+                            f"and {online[1]['kf_frames']}")
         # (a) once more, with the same flags, on the inline path (decode
         # here, correction on the card, the round trip): its per-frame times
         # and fps beside the loader's
@@ -2220,6 +2412,69 @@ def phase_tools(card):
     return launches
 
 
+def phase_longrun(card):
+    """tests/test_longrun.py on the card: its 500 frames rendered here from
+    the port's copy of tests/test_system.py's scene (io/synthetic), through
+    the sequential system with its Config and loop closure on the shipped
+    vocabulary; its bars: never lost, initialized, more than 50 keyframes
+    and 50 loop-closure entries, ATE over every frame under 0.20."""
+    from hslam_tpu_torch.config import Config
+    from hslam_tpu_torch.io import synthetic as syn
+    from hslam_tpu_torch.io.trajectory import ate_rmse
+    from hslam_tpu_torch.models.system import SLAMSystem
+    from hslam_tpu_torch.ops import pyramid as P
+    t0 = time.perf_counter()
+    frames, stamps, gt = syn.longrun_frames(device="cuda")
+    H, W, F = syn.SWEEP_H, syn.SWEEP_W, syn.SWEEP_F
+    log(f"[longrun] {card} | {len(frames)} frames of {H}x{W} rendered on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    slam = SLAMSystem(F, F, W / 2 - 0.5, H / 2 - 0.5, W, H, Config(**LONGRUN_CFG))
+    lost, frame_ms = [], []
+    torch.cuda.synchronize()
+    P.kernel_launches = 0
+    P.plain_calls = 0
+    t_all = time.perf_counter()
+    for i, (f, ts) in enumerate(zip(frames, stamps)):
+        t1 = time.perf_counter()
+        slam.process_frame(f, ts)
+        torch.cuda.synchronize()
+        frame_ms.append(1e3 * (time.perf_counter() - t1))
+        if slam.is_lost:
+            lost.append(i)
+    wall = time.perf_counter() - t_all
+    launches, plain = P.kernel_launches, P.plain_calls
+    slam.close()
+    n = len(frames)
+    est = np.array([s.cam_to_world[:3, 3] for s in slam.shells])
+    ate = float(ate_rmse(np.array([g[:3, 3] for g in gt]), est))
+    lcl, ref = slam.loop_closer, JAX_CPU_LONGRUN
+    valid = sum(s.pose_valid for s in slam.shells)
+    det = sorted(slam.lc_detect_ms)
+    log(f"[longrun] {card} | {n} frames sequential in {wall:.2f} s, fps {n / wall:.2f}; "
+        f"process_frame ms p50 {np.percentile(frame_ms, 50):.2f} p95 "
+        f"{np.percentile(frame_ms, 95):.2f}; frames lost {len(lost)} {lost[:5]}; valid "
+        f"{valid}/{n} (JAX CPU {ref['valid']}); keyframes {slam.next_kf_id} (JAX CPU "
+        f"{ref['keyframes']}; bar > 50); loop-closure entries {len(lcl.entries)} (JAX CPU "
+        f"{ref['entries']}; bar > 50); loops closed {slam.n_loops_closed} + verified below "
+        f"significance {lcl.n_verified_insignificant} (JAX CPU {ref['loops_closed']} + "
+        f"{ref['verified_insignificant']}); relocs {slam.n_relocs}; ATE {ate:.6f} (bar 0.20, "
+        f"JAX CPU {ref['ate']:.6f}); detect ms p50 {det[len(det) // 2] if det else float('nan'):.1f}; "
+        f"pyramid launches {launches} (= {n} + {slam.n_track_retries} retries) plain {plain}")
+    log(f"[longrun] keyframes at frames {[s.id for s in slam.shells if s.is_kf][:12]} ...")
+    failures = []
+    if lost or not slam.initialized:
+        failures.append(f"lost at frames {lost[:5]}, initialized {slam.initialized}")
+    if not slam.next_kf_id > 50 or not len(lcl.entries) > 50:
+        failures.append(f"{slam.next_kf_id} keyframes, {len(lcl.entries)} loop-closure entries")
+    if not (np.isfinite(ate) and ate < 0.20):
+        failures.append(f"ATE {ate}")
+    if launches != n + slam.n_track_retries or plain != 0:
+        failures.append(f"pyramid launches {launches} for {n} frames, plain {plain}")
+    if failures:
+        raise AssertionError("longrun: " + "; ".join(failures))
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     card = phase_environment()
@@ -2231,7 +2486,7 @@ def main():
               (phase_loop_closer, True, False), (phase_loop_sequence, True, True),
               (phase_photocal, True, True), (phase_checkpoint, True, True),
               (phase_distributed, True, True), (phase_dataset, True, True),
-              (phase_tools, True, True)]
+              (phase_tools, True, True), (phase_longrun, True, True)]
     launches, secs = 0, {"environment": time.perf_counter() - t_start}
     for fn, takes_card, counts in phases:
         t0 = time.perf_counter()
@@ -2241,7 +2496,7 @@ def main():
             kernel = out
         elif counts:
             launches += out
-    log(f"[time] seconds by phase (1-16) {json.dumps({k: round(v, 1) for k, v in secs.items()})}"
+    log(f"[time] seconds by phase (1-17) {json.dumps({k: round(v, 1) for k, v in secs.items()})}"
         f"; whole script {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{
         "name": "pyramid_fused", "route": "cuda",

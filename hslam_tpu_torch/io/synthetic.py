@@ -7,6 +7,8 @@ np.random.default_rng instead of jax.random, so the frames are the same
 wherever they are rendered, and both packages can be fed identical input.
 Camera: `arc_xi` is bench.py's arc; poses are worldToCam (R, t) =
 se3_exp(xi), and the ground-truth camera centre is -R^T t.
+`sweep_texture`, `sweep_render` and `longrun_frames` are tests/test_system.py's
+scene and tests/test_longrun.py's 500-frame sweep in torch.
 `make_loop_frames` continues a rendered arc into bench.py's loop sequence:
 the arc again under exposure flicker, a flight back to the start, and the
 first seconds re-traced. `make_photocal_frames` renders the arc through an
@@ -48,6 +50,100 @@ def sweep_xi(t: float) -> np.ndarray:
         0.35 * np.sin(0.5 * t), 0.18 * (1 - np.cos(0.5 * t)), 0.05 * t,
         0.015 * np.sin(0.4 * t), 0.025 * t, 0.01 * np.sin(0.3 * t),
     ], np.float64)
+
+
+# tests/test_system.py's scene (make_texture, render: :13-45): a 96x128
+# texture of 8 sinusoids on a plane at depth 2.0, seen by an fx = fy = 80
+# pinhole camera. Its 24 random numbers are jax.random's float32 draws,
+# copied because torch cannot reproduce them: uniform(PRNGKey(3), (2, 8),
+# 0.5, 6.5) gives the rows (ky, kx), uniform(fold_in(PRNGKey(3), 1), (8,))
+# the phases before their factor 6.28.
+SWEEP_H, SWEEP_W, SWEEP_F, SWEEP_DEPTH = 96, 128, 80.0, 2.0
+SWEEP_KY = (0.9443154335021973, 6.128866195678711, 4.393742084503174, 6.353725910186768,
+            2.170266628265381, 3.9976284503936768, 1.1390330791473389, 2.789396286010742)
+SWEEP_KX = (1.765484094619751, 1.2677733898162842, 4.921466827392578, 1.4367740154266357,
+            2.3054685592651367, 2.041592836380005, 6.31342887878418, 1.1471469402313232)
+SWEEP_PH = (0.02599465847015381, 0.5417391061782837, 0.4810216426849365, 0.6201950311660767,
+            0.38016772270202637, 0.13980019092559814, 0.21593129634857178, 0.27272164821624756)
+SWEEP_AMPS = (35.0, 30.0, 22.0, 18.0, 14.0, 10.0, 8.0, 6.0)
+# tests/test_longrun.py's sequence: 500 frames at t = i / 10 along
+# longrun_xi under the unmodelled gain longrun_gain(i)
+LONGRUN_FRAMES = 500
+
+
+def _grid(h, w, device):
+    import torch
+    return torch.meshgrid(torch.arange(h, device=device), torch.arange(w, device=device),
+                          indexing="ij")
+
+
+def sweep_texture(device="cpu"):
+    """tests/test_system.py's make_texture: a float32 (96, 128) tensor."""
+    import torch
+    f32 = dict(dtype=torch.float32, device=device)
+    ky, kx = torch.tensor(SWEEP_KY, **f32), torch.tensor(SWEEP_KX, **f32)
+    ph = torch.tensor(SWEEP_PH, **f32) * 6.28
+    amps = torch.tensor(SWEEP_AMPS, **f32)
+    ys, xs = _grid(SWEEP_H, SWEEP_W, device)
+    acc = 0
+    for i in range(8):
+        acc = acc + amps[i] * torch.sin(
+            2 * np.pi * (kx[i] * xs / SWEEP_W + ky[i] * ys / SWEEP_H) + ph[i])
+    return 120.0 + acc
+
+
+def sweep_render(I0, R, t):
+    """tests/test_system.py's render: the texture `I0` seen by the camera
+    with worldToCam (R, t) (float32 tensors on I0's device)."""
+    from ..utils import lie
+    from ..utils.interp import bilinear
+    H, W = I0.shape
+    cx, cy = W / 2 - 0.5, H / 2 - 0.5
+    ys, xs = _grid(H, W, I0.device)
+    px = (xs - cx) / SWEEP_F
+    py = (ys - cy) / SWEEP_F
+    Rinv, tinv = lie.se3_inverse(R, t)
+    dz = Rinv[2, 0] * px + Rinv[2, 1] * py + Rinv[2, 2]
+    s = (SWEEP_DEPTH - tinv[2]) / dz
+    X = s * (Rinv[0, 0] * px + Rinv[0, 1] * py + Rinv[0, 2]) + tinv[0]
+    Y = s * (Rinv[1, 0] * px + Rinv[1, 1] * py + Rinv[1, 2]) + tinv[1]
+    return bilinear(I0, SWEEP_F * X / SWEEP_DEPTH + cx, SWEEP_F * Y / SWEEP_DEPTH + cy)
+
+
+def longrun_xi(t: float) -> np.ndarray:
+    """tests/test_longrun.py's slow lissajous sweep (twist at time t)."""
+    return np.array([
+        0.45 * np.sin(0.23 * t), 0.3 * np.sin(0.31 * t + 1.0), 0.12 * np.sin(0.17 * t),
+        0.03 * np.sin(0.19 * t), 0.04 * np.sin(0.13 * t + 0.4), 0.02 * np.sin(0.29 * t),
+    ], np.float64)
+
+
+def longrun_gain(i: int) -> float:
+    """tests/test_longrun.py's unmodelled exposure flicker of frame i."""
+    return 1.0 + 0.1 * np.sin(0.9 * i)
+
+
+def longrun_frames(n: int = LONGRUN_FRAMES, device="cpu"):
+    """tests/test_longrun.py's frames, rendered with torch on `device`:
+    frame i seen from se3_exp(longrun_xi(i / 10)) in float32, times
+    longrun_gain(i) in float64, clipped to [0, 255] and rounded to float32
+    (as the JAX package's process_frame takes the float64 frame). Returns
+    (float32 host frames, timestamps, ground-truth camToWorld (4, 4))."""
+    import torch
+
+    from ..utils import lie
+    I0 = sweep_texture(device)
+    frames, stamps, gt = [], [], []
+    for i in range(n):
+        xi = torch.tensor(longrun_xi(i / 10.0), dtype=torch.float32, device=device)
+        R, t = lie.se3_exp(xi)
+        img = sweep_render(I0, R, t).double() * longrun_gain(i)
+        frames.append(torch.clamp(img, 0.0, 255.0).float())
+        Tcw = np.eye(4)
+        Tcw[:3, :3], Tcw[:3, 3] = R.cpu().numpy(), t.cpu().numpy()
+        gt.append(np.linalg.inv(Tcw))
+        stamps.append(i / 10.0)
+    return [f.cpu().numpy() for f in frames], stamps, gt
 
 
 def se3_exp_np(xi: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:

@@ -61,7 +61,9 @@ own, parallel/distributed.Channel):
     need and tracker residuals), then the calibration fit's state when one
     landed. A follower builds each frame's pyramid itself (the same frame
     and correction give the same bits), runs no tracking, writes the record
-    into its shell and enqueues what rank 0 enqueued;
+    into its shell, holds the tracking reference rank 0 holds (its own
+    mapping thread's publication of the keyframe the record names, so that
+    it can be checkpointed as rank 0 is) and enqueues what rank 0 enqueued;
   * the mapping thread's: one decision per step (the frames it pops, drops
     or traces, whether it keyframes, the loop correction it folds in first,
     the calibration re-sync and the tracker state a keyframe step reads).
@@ -257,11 +259,15 @@ def _n_rmse(cfg: Config) -> int:
 
 def track_fields(cfg: Config):
     """The tracking thread's record: a frame's shell and tracker state
-    (`rmse` holds the tracker's per-level residuals, `rmse_n` of them)."""
+    (`rmse` holds the tracker's per-level residuals, `rmse_n` of them;
+    `tref` is the keyframe whose reference rank 0 holds as the record
+    leaves, which on the pipelined entry may be newer than the completed
+    frame's `ref`; `fit_pend` the staged reference that a first fit
+    re-corrected, -1 if none)."""
     return (("kind", ()), ("sid", ()), ("c2w", (4, 4)), ("c2r", (4, 4)), ("ref", ()),
             ("aff", (2,)), ("valid", ()), ("reloc", ()), ("retried", ()), ("need_kf", ()),
             ("rmse", (_n_rmse(cfg),)), ("rmse_n", ()), ("first_rmse", ()),
-            ("flow", (3,)), ("fit", ()))
+            ("flow", (3,)), ("fit", ()), ("tref", ()), ("fit_pend", ()))
 
 
 def _control_channels(mesh, cfg: Config):
@@ -405,6 +411,14 @@ class SLAMSystem:
         self.sequential = sequential
         self._pending_ref = None          # (template, slot, shell_id, aff, exp)
         self._ref_lock = threading.Lock()
+        # a follower adopts the reference each record names: its mapping
+        # thread's publications kept by shell id until a record names a newer
+        # one, and the one rank 0's first fit re-corrected while it was staged
+        # (shell id, inv_response, inv_vignette) if not yet published here
+        self._ref_cond = threading.Condition(self._ref_lock)
+        self._pub_refs: dict = {}
+        self._pc_fix_ref = None
+        self._pc_pend_fixed = -1          # rank 0: that staged reference's shell id
         self._shell_lock = threading.Lock()
         self._map_exc: Optional[BaseException] = None
         # the loop-closure worker's failures get a slot of their own: a
@@ -561,7 +575,8 @@ class SLAMSystem:
         rec = dict(kind=kind, sid=-1, c2w=np.eye(4), c2r=np.eye(4), ref=-1, aff=np.zeros(2),
                    valid=True, reloc=False, retried=retried, need_kf=need_kf, rmse=rmse,
                    rmse_n=len(self.last_coarse_rmse), first_rmse=self.first_coarse_rmse,
-                   flow=self._last_flow, fit=fit)
+                   flow=self._last_flow, fit=fit, tref=self.ref_shell_id,
+                   fit_pend=self._pc_pend_fixed if fit else -1)
         if shell is not None:
             with self._shell_lock:
                 c2w = shell.cam_to_world.copy()
@@ -596,6 +611,7 @@ class SLAMSystem:
         if int(rec["sid"]) != shell.id:
             raise RuntimeError(f"rank 0 sent frame {int(rec['sid'])}'s record for frame "
                                f"{shell.id}: the ranks' calls differ")
+        self._follow_ref(rec)
         shell.tracking_ref = None if rec["ref"] < 0 else int(rec["ref"])
         shell.cam_to_ref = rec["c2r"]
         with self._shell_lock:
@@ -605,11 +621,33 @@ class SLAMSystem:
         self.n_relocs += int(rec["reloc"])
         self.n_track_retries += int(rec["retried"])
         self.last_coarse_rmse = rec["rmse"][:int(rec["rmse_n"])]
-        self.first_coarse_rmse = rec["first_rmse"]
         self._last_flow = rec["flow"]
         if rec["fit"]:
-            self._pc_apply_fit(self._trk.recv_tensors(self.device))
+            self._pc_apply_fit(self._trk.recv_tensors(self.device), int(rec["fit_pend"]))
         return bool(rec["need_kf"])
+
+    def _follow_ref(self, rec: dict):
+        """A follower: hold the reference rank 0 holds as of this record, its
+        own mapping thread's publication of that keyframe (waited for),
+        taken as _adopt_pending_ref takes one on rank 0; older publications
+        are dropped. The first residual is rank 0's, not reset."""
+        sid = int(rec["tref"])
+        if sid >= 0 and sid != self.ref_shell_id:
+            with self._ref_cond:
+                if not self._ref_cond.wait_for(
+                        lambda: sid in self._pub_refs or self._map_exc is not None,
+                        timeout=REPLAY_TIMEOUT_S):
+                    raise TimeoutError(f"rank 0 tracks against frame {sid}'s reference, "
+                                       "which this rank never published")
+                ref = self._pub_refs.get(sid)
+                if ref is not None:
+                    (self.template, self.ref_slot, self.ref_shell_id,
+                     self.ref_aff, self.ref_exposure) = ref
+                    for k in [k for k in self._pub_refs if k < sid]:
+                        del self._pub_refs[k]
+            if ref is None:               # the mapping thread failed first
+                self._raise_map_exc()
+        self.first_coarse_rmse = rec["first_rmse"]
 
     def _lockstep_idle(self):
         """Before a (re-)initialization on a mesh: let the mapping thread
@@ -654,8 +692,9 @@ class SLAMSystem:
         # bytes); the pyramid casts it there
         raw = torch.as_tensor(np.ascontiguousarray(image)).to(self.device)
         if self._follower:
-            # no tracking here: this frame's pyramid, and rank 0's record of
-            # the frame it completed
+            # no tracking here: the reference rank 0 took for this frame, this
+            # frame's pyramid, and rank 0's record of the frame it completed
+            self._follow_ref(rec)
             self._pipe.append((shell, self._pyramid(raw)))
             if rec["sid"] >= 0:
                 return self._complete_replayed(*self._pipe.popleft(), rec)
@@ -914,6 +953,7 @@ class SLAMSystem:
         params, rms, inv_resp, grad_w, inv_vig = self._pc_fit(
             obs, r2, mask, self._f32(exps), known, self._pc_params)
         first = self._pc_luts is None
+        self._pc_pend_fixed = -1
         if first:
             luts = (inv_resp, inv_vig, grad_w)
             self.template = self._pc_resync_template(self.template, inv_resp, inv_vig)
@@ -923,6 +963,7 @@ class SLAMSystem:
                     tpl_, *rest = self._pending_ref
                     self._pending_ref = (self._pc_resync_template(tpl_, inv_resp, inv_vig),
                                          *rest)
+                    self._pc_pend_fixed = rest[1]
         else:
             # later fits blend into the applied correction: an abrupt change
             # would de-sync new frames from every keyframe image in the window
@@ -945,12 +986,26 @@ class SLAMSystem:
                 self._pc_luts_hist[self.n_photo_fits] = luts
             self._pc_cond.notify_all()
 
-    def _pc_apply_fit(self, tensors):
+    def _pc_apply_fit(self, tensors, pend: int):
         """A follower: the fit state rank 0 sent ([*params, rms, *luts]).
-        The template is not re-corrected here: a follower does not track."""
+        A first fit re-corrects what rank 0's re-corrected: the held
+        template, and the staged reference `pend` (here once it is
+        published, if it is not yet)."""
         n = len(PC.PhotoParams._fields)
-        self._pc_publish(PC.PhotoParams(*tensors[:n]), tensors[n], tuple(tensors[n + 1:]),
-                         self._pc_luts is None)
+        luts = tuple(tensors[n + 1:])
+        first = self._pc_luts is None
+        if first:
+            inv_resp, inv_vig, _ = luts
+            if self.template is not None:
+                self.template = self._pc_resync_template(self.template, inv_resp, inv_vig)
+            with self._ref_cond:
+                ref = self._pub_refs.get(pend)
+                if ref is not None:
+                    self._pub_refs[pend] = (self._pc_resync_template(ref[0], inv_resp, inv_vig),
+                                            *ref[1:])
+                elif pend >= 0:
+                    self._pc_fix_ref = (pend, inv_resp, inv_vig)
+        self._pc_publish(PC.PhotoParams(*tensors[:n]), tensors[n], luts, first)
 
     def _kf_inputs(self):
         """What a keyframe step reads of the tracking thread's state, as of
@@ -1042,6 +1097,8 @@ class SLAMSystem:
                 self._map_execute(*step)
             except Exception as e:        # raised on the tracking thread
                 self._map_exc = e
+                with self._ref_cond:      # a follower waiting for a reference
+                    self._ref_cond.notify_all()
             finally:
                 with self._qcond:
                     self._map_busy = False
@@ -1625,6 +1682,14 @@ class SLAMSystem:
             (self.template, self.ref_slot, self.ref_shell_id,
              self.ref_aff, self.ref_exposure) = ref
             self.first_coarse_rmse = -1.0
+        elif self._follower:
+            with self._ref_cond:
+                fix = self._pc_fix_ref
+                if fix is not None and fix[0] == shell.id:
+                    ref = (self._pc_resync_template(template, *fix[1:]), *ref[1:])
+                    self._pc_fix_ref = None
+                self._pub_refs[shell.id] = ref
+                self._ref_cond.notify_all()
         else:
             with self._ref_lock:
                 self._pending_ref = ref
@@ -1708,6 +1773,9 @@ class SLAMSystem:
                 self._pending_ref = (pr[0], pr[1], pr[2], aff_ba, pr[4])
             elif self.ref_shell_id == shell.id:
                 self.ref_aff = aff_ba
+            pub = self._pub_refs.get(shell.id)     # a follower's publication
+            if pub is not None:
+                self._pub_refs[shell.id] = (*pub[:3], aff_ba, pub[4])
         if self.enable_loop_closure:
             self._loop_closure_step(slot, shell, pyr, b)
 

@@ -13,7 +13,11 @@ models/system.py). Held here:
   (d) one spawn of two ranks over Gloo, frames at a camera's pace, with a
       sleep in rank 1's mapping thread: the ranks' shells are the same bits;
   (e, slow) two ranks with loop closure, then with online calibration, held
-      to the JAX package's pipelined system on a mesh of two XLA:CPU devices.
+      to the JAX package's pipelined system on a mesh of two XLA:CPU devices;
+  (f) a follower holds the tracking reference rank 0 holds (its template,
+      slot, affine and exposure, bit for bit), so that its checkpoint equals
+      rank 0's array for array; a record naming a reference the follower
+      never published raises after the bounded wait.
 
 JAX is imported inside the slow test only: the spawned ranks import this
 module by name and have torch only."""
@@ -131,7 +135,7 @@ RECORDS = {
         c2r=np.random.default_rng(1).normal(size=(4, 4)), ref=12, aff=np.array([-0.0, 1e-300]),
         valid=True, reloc=False, retried=True, need_kf=True,
         rmse=np.array([3.25, np.nan, 100.0, 0.0, 0.0]), rmse_n=3, first_rmse=-1.0,
-        flow=np.float32([0.1, 2.5, 3.0]).astype(np.float64), fit=False)),
+        flow=np.float32([0.1, 2.5, 3.0]).astype(np.float64), fit=False, tref=15, fit_pend=-1)),
     "mapping": (S.MAP_FIELDS, dict(
         kind=S.M_STEP, sid=2 ** 53, n_drop=9, action=S.KF_DEFER, extra=-1, corr=3,
         ref_slot=5, iw_scale=float(np.float64(1.0) + np.finfo(np.float64).eps), resync_fit=2)),
@@ -457,3 +461,123 @@ def test_two_ranks_pipelined_held_to_jax(mode):
     assert ate_j < 0.15 and ate_t < 0.15 and ate_t <= 1.5 * ate_j + 0.02, (ate_t, ate_j)
     if mode == "photo_calib":
         assert r0["fits"] >= 1 and js._pc_params is not None
+
+
+# ---------------------------------------------------------------- (f)
+def _same_checkpoints(a, b):
+    """Two io/checkpoint files: the same keys, and each array (the JSON
+    __meta__ too) the same dtype, shape and bytes."""
+    da, db = np.load(a), np.load(b)
+    assert sorted(da.files) == sorted(db.files)
+    for k in da.files:
+        x, y = da[k], db[k]
+        assert (x.dtype, x.shape) == (y.dtype, y.shape) and x.tobytes() == y.tobytes(), k
+
+
+# the queued entry with online calibration, rank 0's mapping thread idle
+# after every call and rank 0 adopting no new reference until the first fit:
+# that fit lands with a newer reference staged, which it re-corrects
+STAGED = ("queued", 26, dict(online_photo_calib=True, photo_calib_every=8))
+
+
+@pytest.mark.parametrize("case", sorted(CASES) + ["queued_photo_calib_staged"])
+def test_follower_holds_rank0s_reference_and_checkpoints_alike(monkeypatch, tmp_path, case):
+    """After every entry call, a follower holds the tracking reference that
+    rank 0 holds (the keyframe and every template leaf), and after the run
+    also its slot, affine, exposure and tracker residuals, bit for bit, so
+    that io/checkpoint saves it (C21) and the two files are equal; each
+    loads into a fresh system, and the two restored systems are equal."""
+    from hslam_tpu_torch.io import checkpoint as ckpt
+    entry, n, kw = CASES.get(case, STAGED)
+    if kw.get("online_photo_calib"):
+        frames, exps, _ = make_photocal_frames(Scene(H, W, FX, n_blobs=16), n)
+    else:
+        frames, exps = _sweep(n), None
+    held = {}
+
+    def holding(slam, idle=False):
+        # the reference held after each entry call (templates are replaced,
+        # never written in place)
+        held[slam] = []
+
+        def hook(i):
+            if idle:
+                slam._wait_mapping_idle()
+            held[slam].append((slam.ref_shell_id, slam.template))
+        return hook
+
+    _scripted(monkeypatch)
+    lead = _system(**kw)
+    staged = case not in CASES
+    if staged:
+        adopt = lead._adopt_pending_ref
+        monkeypatch.setattr(lead, "_adopt_pending_ref", lambda: (
+            None if lead.template is not None and lead._pc_luts is None else adopt()))
+    _run(lead, frames, entry, exps, hook=holding(lead, idle=staged))
+    if staged:
+        recs = [lead._trk.unpack(b) for b in lead._trk.stream if isinstance(b, torch.Tensor)]
+        assert any(r["fit"] and r["fit_pend"] > r["tref"] >= 0 for r in recs)
+    _scripted(monkeypatch, lead)
+    fol = _system(**kw)
+    _run(fol, frames, entry, exps, hook=holding(fol))
+    assert fol._follower and lead.template is not None and lead.ref_shell_id >= 0
+    for (ia, ta), (ib, tb) in zip(held[lead], held[fol]):
+        assert ia == ib and (ta is None) == (tb is None)
+        if ta is not None:
+            assert all(torch.equal(u, v) for x, y in zip(ta, tb) for u, v in zip(x, y)), ia
+    assert (fol.ref_shell_id, fol.ref_slot, fol.ref_exposure, fol.first_coarse_rmse) == (
+        lead.ref_shell_id, lead.ref_slot, lead.ref_exposure, lead.first_coarse_rmse)
+    for a, b in ((fol.ref_aff, lead.ref_aff), (fol.last_coarse_rmse, lead.last_coarse_rmse)):
+        assert np.asarray(a).tobytes() == np.asarray(b).tobytes()
+    for x, y in zip(lead.template, fol.template):
+        assert len(x) == len(y) and all(torch.equal(u, v) for u, v in zip(x, y))
+    if kw.get("online_photo_calib"):
+        assert lead.n_photo_fits >= 2     # the first fit re-corrected the template
+    files = [str(tmp_path / f"{who}.npz") for who in ("rank0", "follower")]
+    ckpt.save_state(files[0], lead)
+    ckpt.save_state(files[1], fol)
+    _same_checkpoints(*files)
+    restored = []
+    for f in files:
+        s = S.SLAMSystem(FX, FX, CX, CY, W, H, Config(**CFG_KW), enable_loop_closure=False,
+                         device="cpu")
+        ckpt.load_state(f, s)
+        restored.append(s)
+    a, b = restored
+    _assert_same_shells(_shells(a), _shells(b))
+    assert (a.ref_shell_id, a.ref_slot, a.next_kf_id) == (b.ref_shell_id, b.ref_slot, b.next_kf_id)
+    for x, y in zip(a.template, b.template):
+        assert all(torch.equal(u, v) for u, v in zip(x, y))
+    assert all(torch.equal(u, v) for u, v in zip(a.window.frames, b.window.frames))
+
+
+def test_follower_waits_for_an_unpublished_reference_then_raises(monkeypatch):
+    """Rank 0's record names a reference (frame 7's) that this rank's
+    mapping thread never publishes: the follower waits the bounded time for
+    it, then raises, holding no reference; its close then takes the end
+    marks as usual."""
+    _scripted(monkeypatch)
+    lead = _system()
+    try:
+        src = S.Shell(id=0, timestamp=0.0, exposure=1.0, cam_to_world=np.eye(4), tracking_ref=7,
+                      cam_to_ref=np.eye(4), aff=np.zeros(2))
+        lead.ref_shell_id = 7
+        lead._send_frame(S.R_DONE, src)
+    finally:
+        lead.close()
+    assert lead._trk.unpack(lead._trk.stream[0])["tref"] == 7
+    _scripted(monkeypatch, lead)
+    monkeypatch.setattr(S, "REPLAY_TIMEOUT_S", 0.5)
+    fol = _system()
+    try:
+        dst = S.Shell(id=0, timestamp=0.0, exposure=1.0, cam_to_world=np.eye(4),
+                      tracking_ref=None, cam_to_ref=np.eye(4), aff=np.zeros(2))
+        t0 = time.perf_counter()
+        with pytest.raises(TimeoutError, match="frame 7's reference, which this rank never "
+                                               "published"):
+            fol._apply_frame(dst, fol._recv_frame(S.R_DONE))
+        assert 0.5 <= time.perf_counter() - t0 < 30.0
+        assert fol.template is None and fol.ref_shell_id == -1
+    finally:
+        fol.close()
+    assert fol._trk_ended and fol._map_thread is None
