@@ -780,7 +780,6 @@ def _run_pipelined(card, loop_closure):
     log(f"{tag} {card} | frames {SEQ_FRAMES} wall {wall:.2f}s fps {fps:.2f}")
     log(f"{tag} per-frame completion ms p50 {p50:.2f} "
         f"p95 {pct(done_ms, 95):.2f} (n={len(done_ms)})")
-    log(f"{tag} kf_latencies ms {ms(slam.kf_latencies)}")
     log(f"{tag} kf_full_latencies ms {ms(slam.kf_full_latencies)}")
     log(f"{tag} initialized={slam.initialized} keyframes={slam.next_kf_id} "
         f"(JAX CPU {JAX_CPU_KFS_HYBRID}) lost={slam.is_lost} "

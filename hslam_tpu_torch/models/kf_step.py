@@ -31,7 +31,7 @@ from ..ops import epipolar as epi_ops
 from ..ops import features as ft
 from ..ops import tracker as trk_ops
 from ..parallel.dist_ba import sharded_ba_optimize, sharded_marginalize_points
-from ..utils import lie
+from ..utils import lie, trace
 from ..utils.compaction import assign_free_slots, scatter_update
 from ..utils.interp import bilinear
 
@@ -216,6 +216,7 @@ def flag_and_marg_points(window: W.Window, calib: Calib, flag_mask: torch.Tensor
                                       torch.full_like(frames.kf_id, -1)), stable=True)
     newest_slot = order[-1]
     second_slot = torch.where(frames.valid.sum() >= 2, order[-2], order[-1])
+    trace.count("host_sync", 2)        # indexing by device scalars reads them
     last0 = pts.res_state[:, newest_slot]
     last1 = pts.res_state[:, second_slot]
     is_oob = (
@@ -365,12 +366,14 @@ def kf_step(window: W.Window, calib: Calib, imm: Imm, feats: ft.Feats,
     flag_t = torch.as_tensor(flag_np, device=dev)
 
     # 1. trace candidates into this frame
-    imm = imm._replace(trace=trace_candidates(
-        imm, frames, calib.value, R_new, t_new, aff_new, exp_new, pyr[0], cfg))
+    with trace.span("kf.trace"):
+        imm = imm._replace(trace=trace_candidates(
+            imm, frames, calib.value, R_new, t_new, aff_new, exp_new, pyr[0], cfg))
 
     # 2. indirect frontend: keypoints + descriptors of the new keyframe
     if cfg.enable_indirect:
-        ext = extract_feats(pyr[0][..., 0], cfg)
+        with trace.span("kf.features"):
+            ext = extract_feats(pyr[0][..., 0], cfg)
         feats = feats_with_slot(feats, slot, ext)
         kp_u, kp_v, kp_valid = ext[0], ext[1], ext[5]
 
@@ -401,10 +404,11 @@ def kf_step(window: W.Window, calib: Calib, imm: Imm, feats: ft.Feats,
         window = indirect_associate(window, feats, slot, cfg, ind_w_scale=ind_w_scale)
 
     # 5. optimize (point-sharded over the mesh when given)
-    if mesh is None:
-        result: BAResult = ba_optimize(window, calib, cfg, n_iter)
-    else:
-        result = sharded_ba_optimize(mesh, window, calib, cfg, n_iter)
+    with trace.span("kf.ba"):
+        if mesh is None:
+            result: BAResult = ba_optimize(window, calib, cfg, n_iter)
+        else:
+            result = sharded_ba_optimize(mesh, window, calib, cfg, n_iter)
     window, calib = result.window, result.calib
 
     # 6. remove outliers (active points with no active residual)

@@ -39,6 +39,7 @@ from ..ops import bow as bow_ops
 from ..ops import orb as orb_ops
 from ..ops import pnp as pnp_ops
 from ..parallel.dist_pose_graph import sharded_optimize_pose_graph_pcg
+from ..utils import trace
 from . import pose_graph as pg_mod
 
 _LC_DEBUG = os.environ.get("HSLAM_LC_DEBUG") == "1"
@@ -87,7 +88,10 @@ def _pose_error(E):
 
 
 def _np(x):
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    if isinstance(x, torch.Tensor):
+        trace.count("host_sync")
+        return x.detach().cpu().numpy()                          # host sync
+    return np.asarray(x)
 
 
 class LoopCloser:
@@ -281,10 +285,12 @@ class LoopCloser:
         # solver: the 6-point DLT alone is degenerate on coplanar scenes
         T_init = np.linalg.inv(q.cam_to_world) @ cand.cam_to_world
         res = self._pnp(lift(cand), obs, valid, K, T_init, q.kf_id, s_fw)
+        trace.count("host_sync")
         if not bool(res.ok):                                      # host sync
             self._gate("forward PnP", f"q{q.kf_id}: kf{cand.kf_id} forward PnP failed")
             return None
-        n_inl = int(res.inliers.sum())
+        trace.count("host_sync")
+        n_inl = int(res.inliers.sum())                            # host sync
         T_fw = _se3(_np(res.R), _np(res.t))
 
         # mutual-consistency check: solve the REVERSE PnP (query keypoint
@@ -306,6 +312,7 @@ class LoopCloser:
             # reverse solve even for correct loops
             res_rev = self._pnp(lift(q)[idx_np], np.stack([cand.kp_u, cand.kp_v], -1),
                                 valid_rev, K, np.linalg.inv(T_fw), q.kf_id + 7777, s_rv)
+            trace.count("host_sync")
             if not bool(res_rev.ok):                              # host sync
                 self._gate("reverse PnP", f"q{q.kf_id}: kf{cand.kf_id} reverse PnP failed")
                 return None
@@ -387,6 +394,7 @@ class LoopCloser:
         chi1 = torch.sum(wts * pg_mod.residuals(
             pg._replace(s=s_new, R=R_new, t=t_new), zero) ** 2)
         s_np, R_np, t_np = (_np(x).astype(np.float64) for x in (s_new, R_new, t_new))
+        trace.count("host_sync", 2)
         chi0, chi1 = float(chi0), float(chi1)                     # host sync
         if not (np.all(np.isfinite(s_np)) and np.all(np.isfinite(R_np))
                 and np.all(np.isfinite(t_np))):

@@ -28,7 +28,7 @@ from ..models import window as W
 from ..models.calib import Calib
 from ..ops import ba
 from ..parallel.distributed import all_gather, psum
-from ..utils import lie
+from ..utils import lie, trace
 
 
 class BAResult(NamedTuple):
@@ -125,6 +125,7 @@ def _update_energy_th(frames: W.Frames, lin: ba.Linearization, grid,
     n = psum(mask.sum(), axis)
     nth = torch.clamp((cfg.frame_energy_th_n * n.float()).to(torch.int64), 0,
                       flat.shape[0] - 1)
+    trace.count("host_sync")           # indexing by the device scalar `nth` reads it
     nth_val = torch.sqrt(torch.clamp(flat[nth], min=0.0))
     th = nth_val * cfg.frame_energy_th_fac_median
     th = 26.0 * cfg.frame_energy_th_const_weight + th * (1.0 - cfg.frame_energy_th_const_weight)
@@ -197,8 +198,10 @@ def ba_optimize(wnd: W.Window, calib: Calib, cfg: Config, n_iterations: int,
                     & (torch.sqrt(sumR) < 0.00005 * th)
                     & (torch.sqrt(sumT) * sumNID < 0.00005 * th))
         # canbreak (FullSystemOptimize.cpp:257-260)
-        if i + 1 >= cfg.min_opt_iterations and bool(canbreak):    # host sync
-            break
+        if i + 1 >= cfg.min_opt_iterations:
+            trace.count("host_sync")
+            if bool(canbreak):                                        # host sync
+                break
 
     # re-fix the newest frame's linearization point at its current pose
     nat = frames.state * _t(FRAME_STATE_SCALE, frames.state)

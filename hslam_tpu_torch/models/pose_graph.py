@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..parallel.distributed import psum
-from ..utils import lie
+from ..utils import lie, trace
 from ..utils.segsum import SortedBins
 
 # per-GN-iteration cap on each node's sim3 tangent step norm (trust region):
@@ -229,6 +229,7 @@ def optimize_pose_graph_pcg(pg: PoseGraph, n_iters: int = 10, cg_iters: int = 15
         k = 0
         while k < cg_iters:
             n_sync += 1
+            trace.count("host_sync")
             if not float(torch.sum(r * r)) > cg_tol:                 # host sync
                 break
             hp = Hx(p)

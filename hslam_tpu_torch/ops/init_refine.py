@@ -20,7 +20,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..config import PATTERN, PATTERN_NUM, Config
-from ..utils import lie
+from ..utils import lie, trace
 from ..utils.interp import bilinear
 
 
@@ -198,6 +198,7 @@ def direct_refine(first_dir0, second_dir0, u, v, valid, idepth0, triangulated,
                           torch.clamp(lam * 4.0, max=1e4))
         fails = torch.where(accept, torch.zeros_like(fails), fails + 1)
         done = done | (torch.linalg.norm(inc) <= 1e-4) | (fails >= 2)
+        trace.count("host_sync")
         if bool(done):                                           # host sync
             break
     n_good = torch.clamp(good_c.sum(), min=1)

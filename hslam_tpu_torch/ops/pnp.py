@@ -26,7 +26,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..utils import lie
+from ..utils import lie, trace
 
 
 class PnPResult(NamedTuple):
@@ -139,6 +139,7 @@ def solve_pnp(X, x_px, valid, K, seed: int = 0, n_iters: int = 64,
         return R, t, (_reproj_err(R, t, X, x_px, K) < inlier_px) & valid
 
     best = inl.sum(-1).argmax()
+    trace.count("host_sync", 2)        # indexing by the device scalar `best` reads it
     R, t, inliers = refine(Rs[best], ts[best])
     if init_R is not None:
         Rp, tp, inl_p = refine(init_R, init_t)

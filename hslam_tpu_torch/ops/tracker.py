@@ -20,7 +20,7 @@ import torch
 
 from ..config import Config, SCALE_A, SCALE_B, SCALE_XI_ROT, SCALE_XI_TRANS
 from ..models.calib import k_pyr_from_value
-from ..utils import lie
+from ..utils import lie, trace
 from ..utils.interp import pack_cells
 from ..utils.segsum import bin_sums
 from .pyramid import build_direct_pyramid
@@ -253,6 +253,12 @@ def _residual_pass(tmpl_u, tmpl_v, tmpl_id, tmpl_color, tmpl_valid,
     return E, n_terms, n_sat, Hmat, bvec, flowT, flowRT
 
 
+def _pull_float(x: torch.Tensor) -> float:
+    """float() of a device scalar: the host waits for the card here."""
+    trace.count("host_sync")
+    return float(x)
+
+
 def _solve8(Hc, bc, lam):
     """LM step: (H + diag(H) lam) inc = -b, batched; a singular system
     gives non-finite entries (no exception), caught by the callers."""
@@ -276,6 +282,7 @@ def track_coarse(template: Template, target_pyr: List[torch.Tensor],
         coarsest_lvl = n_levels - 1
     if min_res_for_abort is None:
         min_res_for_abort = torch.full((n_levels,), float("inf"), device=dev)
+    trace.count("host_sync")
     min_abort_h = min_res_for_abort.tolist()                      # host sync
     huber = cfg.huber_th
     b0_ref = aff_ref[1]
@@ -304,7 +311,8 @@ def track_coarse(template: Template, target_pyr: List[torch.Tensor],
         E, n, nsat, Hm, bv, *_ = res_at(R, t, aff, base_cut)
         cut_rep = 1.0
         # adaptive cutoff doubling (CoarseTracker.cpp:530-539)
-        while float(nsat / torch.clamp(n, min=1.0)) > 0.6 and cut_rep < 50.0:  # host sync
+        while _pull_float(nsat / torch.clamp(n, min=1.0)) > 0.6 and cut_rep < 50.0:  # host sync
+            trace.count("lm_cutoff_double")
             cut_rep *= 2.0
             E, n, nsat, Hm, bv, *_ = res_at(R, t, aff, base_cut * cut_rep)
         cutoff = base_cut * cut_rep
@@ -312,6 +320,7 @@ def track_coarse(template: Template, target_pyr: List[torch.Tensor],
         lam = torch.tensor(0.01, device=dev)
         n_it = max_iters[min(lvl, len(max_iters) - 1)]
         for _ in range(n_it):
+            trace.count("lm_iter")
             inc = _solve8(Hm, bv, lam)
             extrap = torch.where(lam < 0.001,
                                  torch.sqrt(torch.sqrt(0.001 / torch.clamp(lam, min=1e-12))),
@@ -332,7 +341,7 @@ def track_coarse(template: Template, target_pyr: List[torch.Tensor],
             n = torch.where(accept, n_new, n)
             lam = torch.where(accept, lam * 0.5, torch.clamp(lam * 4.0, min=0.001))
             # convergence in the reference's scaled units (CoarseTracker.cpp:640)
-            if float(torch.linalg.norm(inc_s / precond)) <= 1e-3:   # host sync
+            if _pull_float(torch.linalg.norm(inc_s / precond)) <= 1e-3:   # host sync
                 break
 
         E_fin, n_fin, _, _, _, flowT, flowRT = res_at(R, t, aff, cutoff, True)
@@ -345,15 +354,17 @@ def track_coarse(template: Template, target_pyr: List[torch.Tensor],
         if not ok:
             # the JAX code runs the level masked out and discards it
             continue
-        R, t, aff, rmse, flow, cut_rep = run_level(lvl, R, t, aff)
-        level_res[lvl] = rmse
-        abort_lvl = min(lvl, len(min_abort_h) - 1)
-        rmse_h = float(rmse)                                       # host sync
+        with trace.span("track.level", level=lvl, repeat=False):
+            R, t, aff, rmse, flow, cut_rep = run_level(lvl, R, t, aff)
+            level_res[lvl] = rmse
+            abort_lvl = min(lvl, len(min_abort_h) - 1)
+            rmse_h = _pull_float(rmse)                             # host sync
         ok = not (rmse_h > 1.5 * min_abort_h[abort_lvl])
         # repeat-level-once (CoarseTracker.cpp:654-659)
         if ok and cut_rep > 1.0 and not have_repeated:
             have_repeated = True
-            R, t, aff, rmse_r, flow, _ = run_level(lvl, R, t, aff)
+            with trace.span("track.level", level=lvl, repeat=True):
+                R, t, aff, rmse_r, flow, _ = run_level(lvl, R, t, aff)
             level_res[lvl] = rmse_r
 
     ok_t = torch.tensor(ok, device=dev)
@@ -376,6 +387,7 @@ def score_hypotheses(template: Template, coarse_img: torch.Tensor, K_lvl,
     cutoff = cfg.coarse_cutoff_th
     b0_ref = aff_ref[1]
     N = R_b.shape[0]
+    trace.count("hyp_scored", N)
 
     def res_at(R_, t_, aff_):
         a_r, b_r = rel_affine(exp_ref, exp_new, aff_ref, aff_)
@@ -418,15 +430,18 @@ def track_coarse_multi(template: Template, target_pyr: List[torch.Tensor],
     if coarsest_lvl is None:
         coarsest_lvl = n_levels - 1
     packed_pyr = [pack_pyramid_level(t) for t in target_pyr]
-    scores = score_hypotheses(
-        template, target_pyr[coarsest_lvl], K_pyr[coarsest_lvl], coarsest_lvl,
-        R_b, t_b, aff0, exp_ref, exp_new, aff_ref, cfg,
-        packed=packed_pyr[coarsest_lvl])
-    best = torch.argmin(scores)
+    with trace.span("track.score"):
+        scores = score_hypotheses(
+            template, target_pyr[coarsest_lvl], K_pyr[coarsest_lvl], coarsest_lvl,
+            R_b, t_b, aff0, exp_ref, exp_new, aff_ref, cfg,
+            packed=packed_pyr[coarsest_lvl])
+        best = torch.argmin(scores)
+    trace.count("host_sync", 2)        # indexing by the device scalar `best` reads it
     res = track_coarse(template, target_pyr, K_pyr, R_b[best], t_b[best], aff0,
                        exp_ref, exp_new, aff_ref, cfg, coarsest_lvl=coarsest_lvl,
                        min_res_for_abort=min_res_for_abort,
                        packed_pyr=packed_pyr)
+    trace.count("host_sync")
     return res._replace(ok=res.ok & torch.isfinite(scores[best])), best
 
 

@@ -17,6 +17,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils import trace
+
 CHI2_F = 3.841
 CHI2_H = 5.991
 SCORE_TH = 5.991
@@ -188,6 +190,7 @@ def two_view_reconstruct(p1, p2, valid, K, seed: int = 0, n_iters: int = 200,
 
     score_F, inl_F = _score_F(F_c, p1, p2, valid)
     score_H, inl_H = _score_H(H_c, p1, p2, valid)
+    trace.count("host_sync", 2)        # indexing by device scalars reads them
     inliers_F = inl_F[torch.argmax(score_F)]
     inliers_H = inl_H[torch.argmax(score_H)]
 
@@ -263,6 +266,7 @@ def two_view_reconstruct(p1, p2, valid, K, seed: int = 0, n_iters: int = 200,
     dup = (torch.arange(8, device=dev) >= 4) & ~use_H
     counts = torch.where(dup, torch.full_like(counts, -1), counts)
     best = torch.argmax(counts)
+    trace.count("host_sync", 5)        # indexing by the device scalar `best` reads it
     n_best = counts[best]
     n_second = torch.sort(counts).values[-2]
     ok = ((n_best > 0.8 * torch.clamp(inliers.sum(), min=1))

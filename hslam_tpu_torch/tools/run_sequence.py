@@ -4,6 +4,7 @@ sequence (counterpart of scripts/run_sequence.py).
 Usage:
     python -m hslam_tpu_torch.tools.run_sequence --synthetic 60
     python -m hslam_tpu_torch.tools.run_sequence --dataset /path/to/seq [--out traj.txt]
+    python -m hslam_tpu_torch.tools.run_sequence --synthetic 60 --trace trace.json
 
 A dataset is any layout io/dataset.DatasetReader reads (TUM monoVO, EuRoC,
 KITTI; directories or images.zip) with a camera.txt / camera.yaml. Frames
@@ -22,11 +23,18 @@ script:
   * --synthetic renders io/synthetic.py's textured plane (numpy draws): the
     JAX script's jax.random texture cannot be reproduced in torch;
   * --device picks the device (the card by default; "cpu" for tests).
+
+--trace FILE turns the port's tracer (utils/trace.py) on for the run and
+writes its spans at the end as a Chrome trace (chrome://tracing or
+Perfetto): one track per thread (tracking, mapping, loop closure), each
+span with its frame id and attributes, the counter totals under
+"otherData".
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import time
 from typing import List, Optional
@@ -41,6 +49,7 @@ from ..io.synthetic import Scene, make_sequence
 from ..io.trajectory import ate_rmse, write_tum
 from ..models.system import SLAMSystem
 from ..ops.undistort import invert_response, photometric_correct, remap_image
+from ..utils import trace
 from ..viz.debug_draw import save_debug_frame
 from ..viz.view3d import MapServer
 
@@ -298,6 +307,9 @@ def parse_args(argv=None):
                     help="decode on the calling thread and correct on the device "
                          "(the JAX script's path without its native loader)")
     ap.add_argument("--device", type=str, default="cuda")
+    ap.add_argument("--trace", type=str, default=None, metavar="FILE",
+                    help="record the system's spans and counters and write them "
+                         "here as a Chrome trace (JSON)")
     args = ap.parse_args(argv)
     if not args.synthetic and not args.dataset:
         ap.error("need --synthetic N or --dataset DIR")
@@ -326,6 +338,8 @@ def run(args, cfg: Optional[Config] = None) -> RunResult:
         open(metrics, "w").close()          # fresh stream for the viewer
         viewer = MapServer(metrics, port=args.view3d_port).start()
         print(f"live 3D map at {viewer.url}  (drag orbit / wheel zoom / F follow)")
+    if args.trace:
+        trace.enable()
     try:
         if args.synthetic:
             res = run_synthetic(args, metrics, cfg or SYNTHETIC_CFG)
@@ -333,6 +347,11 @@ def run(args, cfg: Optional[Config] = None) -> RunResult:
             res = run_dataset(args, metrics, cfg or Config())
         slam = res.system
         slam.close()
+        if args.trace:
+            trace.disable()
+            with open(args.trace, "w") as f:
+                json.dump(trace.chrome_trace(trace.snapshot()), f)
+            print(f"spans written to {args.trace}")
         n_proc = len(slam.shells)
         skipped = f", skipped {res.n_skipped}" if args.realtime else ""
         print(f"{n_proc} frames in {res.seconds:.1f}s ({n_proc / res.seconds:.1f} fps), "
@@ -347,6 +366,9 @@ def run(args, cfg: Optional[Config] = None) -> RunResult:
         if viewer is not None:
             viewer.stop()
         raise
+    finally:
+        if args.trace:
+            trace.disable()
     res.viewer = viewer
     return res
 
