@@ -4,9 +4,10 @@
 
 Phases (each failure is fatal; nothing falls back to the CPU):
   1. environment: card name and power limit, torch/CUDA versions, TF32 off;
-  2. build the CUDA pyramid kernels (the fused one and the per-level
-     yardstick, one library) from csrc/ with nvcc, printing what ptxas
-     says of each;
+  2. build the CUDA kernels from csrc/ with nvcc, printing what ptxas says
+     of each: the pyramid (the fused kernel and the per-level yardstick,
+     one library) and the tracker (the scoring and the coarse-to-fine
+     solve, another);
   3. the fused kernel vs its plain torch version on the card (seven shapes
      from 1x1 to 1100x1500, uint8 and float32, 1 to 8 levels, with/without a
      gamma weight), then timed for the main path's call (480x640 uint8, 6
@@ -14,7 +15,10 @@ Phases (each failure is fatal; nothing falls back to the CPU):
      call (CUDA events around the wrapper) and the kernels alone (spans of
      back-to-back launches, warm and with a 64 MB write before each), held
      against the memory bound; the same for the long run's call (96x128
-     float32, 3 levels, phase 17);
+     float32, 3 levels, phase 17); then the tracker's kernels against their
+     plain versions at the benchmark cell's shapes (480x640, 6 levels, 32
+     hypotheses), timed in turns with the plain route, held against the
+     bytes of the passes they made;
   4. device parity: the coarse tracker and one windowed BA from the same
      state on CUDA and on the CPU;
   5. the direct-only path: SLAMSystem.process_frame on the card over 60
@@ -210,21 +214,41 @@ def phase_environment():
     return card
 
 
+def _ptxas_lines(lib, names):
+    """ptxas' registers, shared memory and spills of each entry function of
+    a built library, by the first of `names` ((marker, name)) its mangled
+    name holds."""
+    from hslam_tpu_torch import _cuda
+    lines = _cuda.ptxas_log[lib].splitlines()
+    out = {}
+    for i, line in enumerate(lines):
+        if "Compiling entry function" not in line:
+            continue
+        name = next((n for marker, n in names if marker in line), None)
+        if name is not None:
+            out[name] = " ".join(x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
+                                 if "Used" in x or "spill" in x)
+            log(f"[build] ptxas {name}: {out[name]}")
+    return out
+
+
 def phase_build():
     from hslam_tpu_torch import _cuda
     from hslam_tpu_torch.ops import pyramid as P
+    from hslam_tpu_torch.ops import tracker as T
     t0 = time.perf_counter()
     P._kernels()
     log(f"[build] pyramid.cu (fused + per-level entries) built+loaded in "
         f"{time.perf_counter() - t0:.2f}s (nvcc {_cuda.build_seconds.get('pyramid', 0.0):.2f}s)")
-    lines = _cuda.ptxas_log["pyramid"].splitlines()
-    for i, line in enumerate(lines):
-        if "Compiling entry function" in line and "pyramid_" in line:
-            name = "fused<uint8>" if "fused_kernelIh" in line else (
-                "fused<float32>" if "fused_kernelIf" in line else "per-level")
-            used = " ".join(x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
-                            if "Used" in x or "spill" in x)
-            log(f"[build] ptxas {name}: {used}")
+    _ptxas_lines("pyramid", [("fused_kernelIh", "fused<uint8>"),
+                             ("fused_kernelIf", "fused<float32>"),
+                             ("pyramid_level", "per-level")])
+    t0 = time.perf_counter()
+    T._kernels()
+    log(f"[build] tracker.cu (scoring + coarse-to-fine entries) built+loaded in "
+        f"{time.perf_counter() - t0:.2f}s (nvcc {_cuda.build_seconds.get('tracker', 0.0):.2f}s)")
+    return _ptxas_lines("tracker", [("track_score", "track_score_kernel"),
+                                    ("track_coarse", "track_coarse_kernel")])
 
 
 def _cuda_ms(fn, reps=50, warm=5):
@@ -437,7 +461,9 @@ def phase_kernel():
     if not 0.0 < share_f <= 1.0:
         raise AssertionError(f"float32 share_of_bound {share_f} is not in (0, 1]")
     small = _small_pyramid_case(g, buf, flush)
-    return dict(max_abs_err=max(worst, small.pop("max_abs_err")), ms=device_ms, call_ms=call_ms["fused"],
+    tracker = _tracker_kernel_case()
+    return dict(tracker=tracker,
+                max_abs_err=max(worst, small.pop("max_abs_err")), ms=device_ms, call_ms=call_ms["fused"],
                 device_ms=device_ms, device_ms_cold=device_ms_cold, bound_ms=bound_ms,
                 bound_by="bytes", share_of_bound=share, per_level_ms=call_ms["per_level"],
                 per_level_device_ms=dev_ms["per_level"][0], plain_ms=call_ms["plain"],
@@ -494,6 +520,134 @@ def _small_pyramid_case(g, buf, flush):
                 small_96x128_l3_plain_ms=min(t for k, t in call if k == "plain"),
                 small_96x128_l3_device_ms=dev, small_96x128_l3_device_ms_cold=dev_cold,
                 small_96x128_l3_bound_ms=bound, small_96x128_l3_share_of_bound=bound / dev)
+
+
+TEMPLATE_BYTES_A_POINT = 16       # a valid template point's u, v, idepth, colour (f32)
+PIXEL_BYTES = 12                  # a level's [I, dx, dy] in f32
+
+
+def _tracker_passes(lm, residuals, n_hyp, coarsest):
+    """The residual passes a tracking call made, level by level, from its
+    record: each level that ran makes one pass before its LM, one per
+    cutoff doubling and iteration and a final one (a repeated level's
+    second run is left out: a lower bound); the scoring makes 1 + 10 a
+    hypothesis at the coarsest level."""
+    passes = {lvl: (2 + int(lm[1][lvl]) + int(lm[0][lvl]) if np.isfinite(residuals[lvl]) else 0)
+              for lvl in range(len(residuals))}
+    passes[coarsest] += n_hyp * 11
+    return passes
+
+
+def _touched_pixels(tpl, lvl, img, K, R, t):
+    """The distinct pixels of the level `img` whose [I, dx, dy] a pass at
+    (R, t) gathers: the 2x2 cell of each valid template point that lands
+    inside (ops/tracker._residual_pass's warp)."""
+    u, v, idp, ok = tpl.u[lvl], tpl.v[lvl], tpl.idepth[lvl], tpl.valid[lvl]
+    fx, fy, cx, cy = K.tolist()
+    Hl, Wl = img.shape[0], img.shape[1]
+    ray = torch.stack([(u - cx) / fx, (v - cy) / fy, torch.ones_like(u)], 1)
+    P = ray @ R.T + idp[:, None] * t
+    Ku, Kv = fx * P[:, 0] / P[:, 2] + cx, fy * P[:, 1] / P[:, 2] + cy
+    inside = ok & (Ku > 2) & (Kv > 2) & (Ku < Wl - 3) & (Kv < Hl - 3) & (P[:, 2] > 0)
+    ix, iy = Ku[inside].floor().long(), Kv[inside].floor().long()
+    cells = torch.cat([iy * Wl + ix, iy * Wl + ix + 1, (iy + 1) * Wl + ix, (iy + 1) * Wl + ix + 1])
+    return int(torch.unique(cells).numel())
+
+
+def _tracker_kernel_case():
+    """The tracker's kernels at the benchmark cell's shapes (480x640, 6
+    levels, 32 hypotheses, the template at its cap, the stated caps), held
+    to the plain version on the same CUDA tensors, then timed: the call
+    (scoring, argmin and coarse-to-fine solve) through the kernels and
+    through the plain route, in turns, and the kernels alone. Two bounds:
+    bytes, each level's template read once and the pixels its gathers
+    touch at the final pose read once, at 3.35 TB/s; latency, the passes of
+    the serial chain (the scoring's 11, then the coarse-to-fine passes)
+    times the cost of one pass of the coarse-to-fine kernel with almost
+    nothing to read (measured: its time on a template of 16 points, cut to
+    its valid entries, over its passes)."""
+    from hslam_tpu_torch.config import Config
+    from hslam_tpu_torch.io.synthetic import tracker_case
+    from hslam_tpu_torch.ops import tracker as T
+    c = tracker_case(device=torch.device("cuda"))
+    cfg = Config()
+    tpl, pyr, K = c["template"], c["target_pyr"], c["K_pyr"]
+    rest = (c["aff0"], c["exp_ref"], c["exp_new"], c["aff_ref"], cfg)
+
+    def kernel():
+        return T.track_coarse_multi(tpl, pyr, K, c["R_b"], c["t_b"], *rest)
+
+    def plain():
+        scores = T.score_hypotheses_plain(tpl, pyr[5], K[5], 5, c["R_b"], c["t_b"], *rest)
+        b = torch.argmin(scores).reshape(1)
+        return (T.track_coarse_plain(tpl, pyr, K, c["R_b"].index_select(0, b)[0],
+                                     c["t_b"].index_select(0, b)[0], *rest), b[0])
+
+    (rk, bk), (rp, bp) = kernel(), plain()
+    torch.cuda.synchronize()
+    d_t = float((rk.t - rp.t).abs().max())
+    d_aff = float((rk.aff - rp.aff).abs().max())
+    log(f"[tracker] 480x640, 6 levels, 32 hypotheses, {[int(u.numel()) for u in tpl.u]} template "
+        f"points: best {int(bk)} / plain {int(bp)}; LM iterations {rk.lm[0].tolist()} / "
+        f"{rp.lm[0].tolist()}; max|dt| {d_t:.3g}, max|daff| {d_aff:.3g}; ok {bool(rk.ok)}")
+    if int(bk) != int(bp) or not bool(rk.ok) or not d_t <= 1e-4 or not d_aff <= 1e-3:
+        raise AssertionError("the tracker kernels differ from the plain version")
+    lm, res = rk.lm.cpu().numpy(), rk.residuals.cpu().numpy()
+    passes = _tracker_passes(lm, res, 0, 5)
+    touched = {lvl: _touched_pixels(tpl, lvl, pyr[lvl], K[lvl], rk.R, rk.t)
+               for lvl, p in passes.items() if p}
+    # every entry's valid flag, a valid point's four floats, a touched pixel
+    n_bytes = sum(int(tpl.u[lvl].numel()) + int(tpl.valid[lvl].sum()) * TEMPLATE_BYTES_A_POINT
+                  + n * PIXEL_BYTES for lvl, n in touched.items())
+    bound = 1e3 * n_bytes / H100_BYTES_PER_S
+    call = []
+    for k in ("plain", "kernel", "kernel", "plain"):
+        fn = kernel if k == "kernel" else plain
+        call.append((k, _cuda_ms(fn, reps=50 if k == "kernel" else 5,
+                                 warm=5 if k == "kernel" else 1)))
+    log("[tracker] call_ms, CUDA events around the call, in turns: "
+        + " ".join(f"{k} {t:.4f}" for k, t in call))
+    for _ in range(5):
+        kernel()
+    whole = [_span_ms(kernel, 25) for _ in range(5)]
+    def score_only():
+        T.score_hypotheses(tpl, pyr[5], K[5], 5, c["R_b"], c["t_b"], *rest)
+
+    score = [_span_ms(score_only, 100) for _ in range(5)]
+    r0 = c["R_b"].index_select(0, bk.reshape(1))[0]
+    t0 = c["t_b"].index_select(0, bk.reshape(1))[0]
+    coarse = [_span_ms(lambda: T.track_coarse(tpl, pyr, K, r0, t0, *rest), 100) for _ in range(5)]
+    dev_ms, score_ms, coarse_ms = (float(np.median(x)) for x in (whole, score, coarse))
+    # the latency floor of a pass: the coarse-to-fine kernel on 16 points
+    # (build_template puts the valid entries first)
+    e = tracker_case(device=torch.device("cuda"), n_points=16)
+    nv = [int(x.sum()) for x in e["template"].valid]
+    e_tpl = e["template"]._replace(**{f: [x[:n] for x, n in zip(getattr(e["template"], f), nv)]
+                                      for f in e["template"]._fields})
+    e_args = (e_tpl, e["target_pyr"], e["K_pyr"], e["R_b"][0], e["t_b"][0], e["aff0"],
+              e["exp_ref"], e["exp_new"], e["aff_ref"], cfg)
+    er = T.track_coarse(*e_args)
+    e_passes = sum(_tracker_passes(er.lm.cpu().numpy(), er.residuals.cpu().numpy(), 0, 5).values())
+    e_ms = float(np.median([_span_ms(lambda: T.track_coarse(*e_args), 100) for _ in range(5)]))
+    pass_us = 1e3 * e_ms / max(e_passes, 1)
+    chain = T.SCORE_ITERS + 1 + sum(passes.values())
+    latency_ms = 1e-3 * chain * pass_us
+    share = bound / dev_ms
+    log(f"[tracker] device_ms {dev_ms:.5f} ({' '.join(f'{t:.5f}' for t in whole)}): scoring "
+        f"{score_ms:.5f}, coarse-to-fine {coarse_ms:.5f}; coarse-to-fine passes by level "
+        f"{passes}, pixels touched {touched}; bytes bound_ms {bound:.6f} ({n_bytes} B at 3.35 "
+        f"TB/s), share_of_bound {share:.4f}; latency bound_ms {latency_ms:.5f} ({chain} serial "
+        f"passes x {pass_us:.4f} us, a pass on 16 points: {e_ms:.5f} ms over {e_passes} passes), "
+        f"share_of_latency_bound {latency_ms / dev_ms:.4f}")
+    if not 0.0 < share <= 1.0:
+        raise AssertionError(f"tracker share_of_bound {share} is not in (0, 1]")
+    return dict(call_ms=min(t for k, t in call if k == "kernel"),
+                plain_ms=min(t for k, t in call if k == "plain"), device_ms=dev_ms,
+                score_device_ms=score_ms, coarse_device_ms=coarse_ms, bound_ms=bound,
+                bound_by="bytes", share_of_bound=share, latency_bound_ms=latency_ms,
+                share_of_latency_bound=latency_ms / dev_ms, serial_passes=chain,
+                pass_floor_us=pass_us, library_ms=None,
+                lm_iters=int(lm[0].sum()), max_abs_err=max(d_t, d_aff))
 
 
 def _small_state():
@@ -563,6 +717,8 @@ def phase_main_path(card):
     from hslam_tpu_torch.io.trajectory import ate_rmse
     from hslam_tpu_torch.models.system import SLAMSystem
     from hslam_tpu_torch.ops import pyramid as P
+    from hslam_tpu_torch.ops import tracker as T
+    from hslam_tpu_torch.utils import trace
     H, W, FX = 480, 640, 320.0
     cfg = Config(max_frames=8, max_points=2048, max_immature=2048, pyr_levels=6,
                  enable_indirect=False, init_direct_refine=False)
@@ -573,9 +729,14 @@ def phase_main_path(card):
     torch.cuda.synchronize()
     P.kernel_launches = 0
     P.plain_calls = 0
+    T.kernel_launches = 0
+    T.plain_calls = 0
+    trace.enable()          # its counter track_kernel: the coarse-to-fine launches
     frame_ms, kf_ms = [], []
+    tracked = 0             # calls that track (the system was initialized before them)
     t_all = time.perf_counter()
     for i, f in enumerate(frames):
+        tracked += slam.initialized
         t0 = time.perf_counter()
         shell = slam.process_frame(f, 0.05 * i)
         torch.cuda.synchronize()
@@ -583,7 +744,13 @@ def phase_main_path(card):
         if slam.initialized and shell.tracking_ref is not None:
             (kf_ms if shell.is_kf else frame_ms).append(dt)
     wall = time.perf_counter() - t_all
+    trace.disable()
     launches, plain = P.kernel_launches, P.plain_calls
+    # each tracked frame: one scoring and one coarse-to-fine launch, then one
+    # coarse-to-fine launch a serial try if the batched winner was rejected
+    t_launches, t_plain = T.kernel_launches, T.plain_calls
+    serial = trace.snapshot()["counters"].get("track_kernel", 0) - tracked
+    RESULTS["track_main"] = dict(launches=t_launches, plain=t_plain, frames=tracked)
 
     valid = [s.id for s in slam.shells if s.pose_valid]
     finite = all(np.all(np.isfinite(s.cam_to_world)) for s in slam.shells)
@@ -598,8 +765,9 @@ def phase_main_path(card):
         f"(JAX CPU {JAX_CPU_KFS}) lost={slam.is_lost} pose_valid={len(valid)}/{SEQ_FRAMES} "
         f"relocs={slam.n_relocs} ATE={ate:.6f} (bar {bar:.4f}, "
         f"JAX CPU {JAX_CPU_ATE:.6f})")
-    log(f"[main] pyramid kernel launches {launches} plain calls {plain} "
-        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    log(f"[main] pyramid kernel launches {launches} plain calls {plain}; tracker kernel "
+        f"launches {t_launches} (2 x {tracked} tracked frames + {serial} serial tries) plain "
+        f"calls {t_plain}; max_memory_allocated {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     failures = []
     if not slam.initialized:
         failures.append("not initialized")
@@ -614,6 +782,9 @@ def phase_main_path(card):
     if launches != SEQ_FRAMES or plain != 0:
         failures.append(f"kernel launches {launches} (want {SEQ_FRAMES}, one per pyramid), "
                         f"plain calls {plain}")
+    if tracked < 1 or serial < 0 or t_launches != 2 * tracked + serial or t_plain != 0:
+        failures.append(f"tracker kernel launches {t_launches} (want 2 x {tracked} + {serial}), "
+                        f"plain calls {t_plain}")
     if failures:
         raise AssertionError("main path: " + "; ".join(failures))
     return launches
@@ -739,6 +910,7 @@ def _run_pipelined(card, loop_closure):
     from hslam_tpu_torch.io.trajectory import ate_rmse
     from hslam_tpu_torch.models.system import SLAMSystem
     from hslam_tpu_torch.ops import pyramid as P
+    from hslam_tpu_torch.ops import tracker as T
     H, W, FX = 480, 640, 320.0
     cfg = _hybrid_cfg()
     frames, centres = make_sequence(Scene(H, W, FX), SEQ_FRAMES)
@@ -754,9 +926,13 @@ def _run_pipelined(card, loop_closure):
         torch.cuda.synchronize()
         P.kernel_launches = 0
         P.plain_calls = 0
+        T.kernel_launches = 0
+        T.plain_calls = 0
         done_ms = []
+        tracked = 0         # calls that run track_step (initialized before them)
         t_all = time.perf_counter()
         for i, f in enumerate(frames):
+            tracked += slam.initialized
             t0 = time.perf_counter()
             out = slam.process_frame_pipelined(f, 0.05 * i)
             torch.cuda.synchronize()
@@ -767,6 +943,7 @@ def _run_pipelined(card, loop_closure):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t_all
         launches, plain = P.kernel_launches, P.plain_calls
+        t_launches, t_plain = T.kernel_launches, T.plain_calls
     finally:
         slam.close()
     valid = [s.id for s in slam.shells if s.pose_valid]
@@ -774,6 +951,11 @@ def _run_pipelined(card, loop_closure):
     ate = ate_rmse(centres[valid], np.array([slam.shells[i].cam_to_world[:3, 3] for i in valid]))
     bar = max(1.5 * JAX_CPU_ATE_HYBRID, 0.02)
     builds = SEQ_FRAMES + slam.n_track_retries
+    # track_step: one scoring and one coarse-to-fine launch, again on a retry
+    t_want = 2 * (tracked + slam.n_track_retries)
+    main = RESULTS.setdefault("track_main", dict(launches=0, plain=0, frames=0))
+    main.update(launches=main["launches"] + t_launches, plain=main["plain"] + t_plain,
+                frames=main["frames"] + tracked)
     pct = lambda xs, q: float(np.percentile(xs, q)) if xs else float("nan")  # noqa: E731
     ms = lambda xs: [round(1e3 * x, 1) for x in xs]  # noqa: E731
     fps, p50 = SEQ_FRAMES / wall, pct(done_ms, 50)
@@ -787,7 +969,8 @@ def _run_pipelined(card, loop_closure):
         f"JAX CPU {JAX_CPU_ATE_HYBRID:.6f}) ind_obs_history={slam.ind_obs_history}")
     log(f"{tag} n_track_retries={slam.n_track_retries} "
         f"n_frames_skipped={slam.n_frames_skipped} n_relocs={slam.n_relocs} "
-        f"pyramid kernel launches {launches} (builds {builds}) plain calls {plain} "
+        f"pyramid kernel launches {launches} (builds {builds}) plain calls {plain}; tracker "
+        f"kernel launches {t_launches} (2 x ({tracked} tracked + retries)) plain calls {t_plain}; "
         f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     failures = []
     if not slam.initialized:
@@ -803,6 +986,9 @@ def _run_pipelined(card, loop_closure):
     if launches != builds or plain != 0:
         failures.append(f"kernel launches {launches} (want {builds}, one per pyramid), "
                         f"plain calls {plain}")
+    if tracked < 1 or t_launches != t_want or t_plain != 0:
+        failures.append(f"tracker kernel launches {t_launches} (want {t_want}), "
+                        f"plain calls {t_plain}")
     if loop_closure:
         lc = slam.loop_closer
         entries = -1 if lc is None else len(lc.entries)
@@ -1581,6 +1767,7 @@ def _p14_pipelined(mesh, frames, sleep_rank=None, ckpt=None):
     there (io/checkpoint)."""
     from hslam_tpu_torch.models.system import SLAMSystem
     from hslam_tpu_torch.ops import pyramid as P
+    from hslam_tpu_torch.ops import tracker as T
     H, W, FX = 480, 640, 320.0
     slam = SLAMSystem(FX, FX, W / 2 - 0.5, H / 2 - 0.5, W, H, _hybrid_cfg(), sequential=False,
                       dist_mesh=mesh)
@@ -1595,8 +1782,12 @@ def _p14_pipelined(mesh, frames, sleep_rank=None, ckpt=None):
         torch.cuda.synchronize()
         P.kernel_launches = 0
         P.plain_calls = 0
+        T.kernel_launches = 0
+        T.plain_calls = 0
+        tracked = 0
         t_all = time.perf_counter()
         for i, f in enumerate(frames):
+            tracked += slam.initialized
             slam.process_frame_pipelined(f, 0.05 * i)
             torch.cuda.synchronize()          # as phase 7 times its frames
         slam.flush_pipeline()
@@ -1604,6 +1795,7 @@ def _p14_pipelined(mesh, frames, sleep_rank=None, ckpt=None):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t_all
         launches, plain = P.kernel_launches, P.plain_calls
+        t_launches, t_plain = T.kernel_launches, T.plain_calls
         if ckpt is not None:
             from hslam_tpu_torch.io.checkpoint import save_state
             save_state(ckpt, slam)
@@ -1615,7 +1807,8 @@ def _p14_pipelined(mesh, frames, sleep_rank=None, ckpt=None):
     return dict(poses=np.stack([s.cam_to_world for s in slam.shells]),
                 valid=[s.pose_valid for s in slam.shells], keyframes=slam.next_kf_id,
                 initialized=slam.initialized, lost=slam.is_lost, retries=slam.n_track_retries,
-                skipped=slam.n_frames_skipped, launches=launches, plain=plain,
+                skipped=slam.n_frames_skipped, launches=launches, plain=plain, tracked=tracked,
+                track_launches=t_launches, track_plain=t_plain,
                 fps=len(frames) / wall, ind_obs=sum(slam.ind_obs_history),
                 lc_entries=-1 if lc is None else len(lc.entries), loops=slam.n_loops_closed,
                 follower=slam._follower, **channels)
@@ -1643,6 +1836,10 @@ def _pipelined_failures(tag, r, centres, leader=True):
     want = n + r["retries"] if leader else n
     if r["launches"] != want or r["plain"] != 0:
         out.append(f"{tag}: pyramid launches {r['launches']} (want {want}), plain {r['plain']}")
+    want = 2 * (r["tracked"] + r["retries"]) if leader else 0
+    if r["track_launches"] != want or r["track_plain"] != 0:
+        out.append(f"{tag}: tracker kernel launches {r['track_launches']} (want {want}), plain "
+                   f"{r['track_plain']}")
     return ate, out
 
 
@@ -2491,8 +2688,11 @@ def main():
         t0 = time.perf_counter()
         out = fn(card) if takes_card else fn()
         secs[fn.__name__[len("phase_"):]] = time.perf_counter() - t0
-        if fn is phase_kernel:
+        if fn is phase_build:
+            ptxas = out
+        elif fn is phase_kernel:
             kernel = out
+            tracker = kernel.pop("tracker")
         elif counts:
             launches += out
     log(f"[time] seconds by phase (1-17) {json.dumps({k: round(v, 1) for k, v in secs.items()})}"
@@ -2501,7 +2701,12 @@ def main():
         "name": "pyramid_fused", "route": "cuda",
         "source": "hslam_tpu_torch/csrc/pyramid.cu",
         "replaces": "hslam_tpu/ops/pallas_kernels.py:38",
-        "launches": launches, **kernel}]}))
+        "launches": launches, **kernel}, {
+        "name": "track_coarse", "route": "cuda",
+        "source": "hslam_tpu_torch/csrc/tracker.cu",
+        "replaces": None, "launches": RESULTS["track_main"]["launches"],
+        "plain_calls": RESULTS["track_main"]["plain"],
+        "frames": RESULTS["track_main"]["frames"], "ptxas": ptxas, **tracker}]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

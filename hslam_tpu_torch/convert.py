@@ -60,7 +60,9 @@ def from_numpy(tree, device="cuda"):
         cls = _PORT_TYPES.get(type(tree).__name__)
         if cls is None:
             raise TypeError(f"no port structure named {type(tree).__name__}")
-        out = cls(**{k: from_numpy(getattr(tree, k), device) for k in cls._fields})
+        # a field the other package's structure lacks keeps its default
+        out = cls(**{k: from_numpy(getattr(tree, k), device) for k in cls._fields
+                     if hasattr(tree, k)})
         if cls is _pg.PoseGraph:      # the port indexes with int64
             out = out._replace(edge_i=out.edge_i.long(), edge_j=out.edge_j.long())
         if cls is _gba.GlobalBA:
@@ -69,7 +71,7 @@ def from_numpy(tree, device="cuda"):
         return out
     if isinstance(tree, (list, tuple)):
         return type(tree)(from_numpy(x, device) for x in tree)
-    if isinstance(tree, (bool, int, float)) and not isinstance(tree, np.generic):
+    if tree is None or (isinstance(tree, (bool, int, float)) and not isinstance(tree, np.generic)):
         return tree
     arr = np.asarray(tree)
     if arr.dtype == np.uint32:

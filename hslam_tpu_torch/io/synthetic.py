@@ -465,3 +465,48 @@ def write_tum(root: str, scene: Scene, n_frames: int, camera_txt: str = TUM_CAME
         raise OSError("cv2.imwrite failed for vignette.png")
     write_tum_file(os.path.join(root, "groundtruth.txt"), stamps, poses)
     return dict(timestamps=stamps, exposures=exps, poses=poses, camera=cam, sha256=sha)
+
+
+def tracker_case(height: int = 480, width: int = 640, levels: int = 6, n_points: int = 2048,
+                 n_hyp: int = 32, seed: int = 0, device="cpu") -> dict:
+    """One frame-to-keyframe tracking problem on the plane, for the
+    tracker's tests and timings at any shape: the template of `n_points`
+    random pixels of the reference view at the plane's depth (90% valid),
+    the target view's pyramid (moved by the twist `xi`, brightness
+    1.1 I + 3), the levels' intrinsics and `n_hyp` start hypotheses around
+    the truth (the first the identity, the last four far off, so that they
+    score inf). All tensors on `device`."""
+    import torch
+
+    from ..models.calib import k_pyr_from_value
+    from ..ops import tracker as trk
+    from ..ops.pyramid import build_direct_pyramid
+
+    rng = np.random.default_rng(seed)
+    fx = 0.5 * width
+    scene = Scene(height, width, fx, n_blobs=max(16, height * width // 768))
+    xi = np.array([0.03, -0.01, 0.02, 0.004, -0.006, 0.002])
+    R, t = se3_exp_np(xi)
+    ref = scene.render(np.eye(3), np.zeros(3))
+    tgt = np.clip(1.1 * scene.render(R, t) + 3.0, 0.0, 255.0).astype(np.float32)
+
+    def dev(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    ref_pyr, _ = build_direct_pyramid(dev(ref), levels)
+    tgt_pyr, _ = build_direct_pyramid(dev(tgt), levels)
+    u = rng.uniform(4.0, width - 5.0, n_points)
+    v = rng.uniform(4.0, height - 5.0, n_points)
+    template = trk.build_template(
+        dev(u), dev(v), dev(np.full(n_points, 1.0 / scene.depth)),
+        dev(rng.uniform(0.5, 2.0, n_points)), dev(rng.uniform(size=n_points) > 0.1, torch.bool),
+        ref_pyr)
+    K_pyr = k_pyr_from_value(dev([fx, fx, scene.cx, scene.cy]), levels)
+    xis = xi + rng.normal(0.0, 0.01, (n_hyp, 6))
+    xis[0] = 0.0
+    xis[-4:, :3] = [[5.0, 0.0, 0.0], [0.0, 5.0, 0.0], [-5.0, 0.0, 0.0], [0.0, -5.0, 0.0]]
+    poses = [se3_exp_np(x) for x in xis]
+    return dict(template=template, target_pyr=tgt_pyr, K_pyr=K_pyr,
+                R_b=dev(np.stack([p[0] for p in poses])), t_b=dev(np.stack([p[1] for p in poses])),
+                aff0=dev([0.0, 0.0]), exp_ref=dev(1.0), exp_new=dev(1.0),
+                aff_ref=dev([0.0, 0.0]), R=R, t=t)

@@ -3,17 +3,30 @@ hslam_tpu/ops/tracker.py: nearest_template_depth, build_template,
 _residual_pass, track_coarse, score_hypotheses, track_coarse_multi,
 motion_hypotheses_device and the fused per-frame track_step).
 
-Semantics follow the JAX package line by line; what changes is control
-flow. The JAX `lax.while_loop`s (cutoff doubling, the per-level LM loop)
-become Python loops whose exit test reads a device scalar: each such read is
-a host sync, marked `# host sync` below. Levels that the JAX code runs under
-an all-False `active` mask (tracker.py:448-467) are skipped here: their
-results were discarded there, so the returned result is the same. The
-`vmap` over motion hypotheses in score_hypotheses is a leading batch
-dimension, with one batched 8x8 solve per iteration.
+`track_coarse` and `score_hypotheses` have two routes. For CUDA tensors
+each is one launch of the hand-written kernels in csrc/tracker.cu (the
+whole coarse-to-fine LM in one thread block; one block per hypothesis for
+the scoring), with no host read until the caller pulls the result; a
+refused launch raises. For CPU tensors, and only there, the plain versions
+below run. `kernel_launches` and `plain_calls` count the two routes.
+
+The plain versions follow the JAX package line by line; what changes is
+control flow. The JAX `lax.while_loop`s (cutoff doubling, the per-level LM
+loop) become Python loops whose exit test reads a device scalar: each such
+read is a host sync, marked `# host sync` below. Levels that the JAX code
+runs under an all-False `active` mask (tracker.py:448-467) are skipped
+here: their results were discarded there, so the returned result is the
+same. The `vmap` over motion hypotheses in score_hypotheses is a leading
+batch dimension, with one batched 8x8 solve per iteration.
+
+Both routes return the LM's iterations and cutoff doublings per level as a
+small int tensor (`TrackResult.lm`); the system counts `lm_iter` and
+`lm_cutoff_double` from it when it pulls the result.
 """
 from __future__ import annotations
 
+import ctypes
+import threading
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
@@ -30,6 +43,14 @@ from .pyramid import build_direct_pyramid
 _PRECOND = [SCALE_XI_ROT] * 3 + [SCALE_XI_TRANS] * 3 + [SCALE_A, SCALE_B]
 
 TEMPLATE_CAP = 8192
+MAX_LEVELS = 8          # the kernels take the levels as a fixed-size array
+SCORE_ITERS = 10        # score_hypotheses' fixed GN/LM iterations
+
+kernel_launches = 0     # launches of the kernels (scoring and coarse-to-fine)
+plain_calls = 0         # calls of the plain track_coarse and score_hypotheses
+
+_fns = None            # (score, coarse) entries of the built csrc/tracker.cu
+_count_lock = threading.Lock()
 
 
 class Template(NamedTuple):
@@ -130,6 +151,7 @@ class TrackResult(NamedTuple):
     ok: torch.Tensor
     residuals: torch.Tensor         # (L,)
     flow: torch.Tensor              # (3,)
+    lm: Optional[torch.Tensor] = None   # (2, L) int32: LM iterations, cutoff doublings
 
 
 def pack_pyramid_level(img3: torch.Tensor) -> torch.Tensor:
@@ -268,14 +290,13 @@ def _solve8(Hc, bc, lam):
     return inc
 
 
-def track_coarse(template: Template, target_pyr: List[torch.Tensor],
-                 K_pyr: torch.Tensor, R0, t0, aff0, exp_ref, exp_new, aff_ref,
-                 cfg: Config, coarsest_lvl: Optional[int] = None,
-                 min_res_for_abort: Optional[torch.Tensor] = None,
-                 packed_pyr: Optional[List[torch.Tensor]] = None) -> TrackResult:
-    """Coarse-to-fine LM alignment of one motion hypothesis
-    (trackNewestCoarse): cutoff doubling, per-level iteration caps, lambda
-    schedule, extrapolation, early abort and the affine sanity check."""
+def track_coarse_plain(template: Template, target_pyr: List[torch.Tensor],
+                       K_pyr: torch.Tensor, R0, t0, aff0, exp_ref, exp_new, aff_ref,
+                       cfg: Config, coarsest_lvl: Optional[int] = None,
+                       min_res_for_abort: Optional[torch.Tensor] = None,
+                       packed_pyr: Optional[List[torch.Tensor]] = None) -> TrackResult:
+    """The plain version of track_coarse (torch ops launched from the host,
+    a host sync per LM iteration); runs on any device."""
     dev = R0.device
     n_levels = len(target_pyr)
     if coarsest_lvl is None:
@@ -295,6 +316,7 @@ def track_coarse(template: Template, target_pyr: List[torch.Tensor],
     nan = torch.tensor(float("nan"), device=dev)
     level_res = [nan] * n_levels
     flow = torch.tensor([1000.0, 0.0, 1000.0], device=dev)
+    lm = [[0] * n_levels, [0] * n_levels]         # iterations, cutoff doublings per level
 
     def run_level(lvl, R, t, aff):
         tm = (template.u[lvl], template.v[lvl], template.idepth[lvl],
@@ -312,7 +334,7 @@ def track_coarse(template: Template, target_pyr: List[torch.Tensor],
         cut_rep = 1.0
         # adaptive cutoff doubling (CoarseTracker.cpp:530-539)
         while _pull_float(nsat / torch.clamp(n, min=1.0)) > 0.6 and cut_rep < 50.0:  # host sync
-            trace.count("lm_cutoff_double")
+            lm[1][lvl] += 1
             cut_rep *= 2.0
             E, n, nsat, Hm, bv, *_ = res_at(R, t, aff, base_cut * cut_rep)
         cutoff = base_cut * cut_rep
@@ -320,7 +342,7 @@ def track_coarse(template: Template, target_pyr: List[torch.Tensor],
         lam = torch.tensor(0.01, device=dev)
         n_it = max_iters[min(lvl, len(max_iters) - 1)]
         for _ in range(n_it):
-            trace.count("lm_iter")
+            lm[0][lvl] += 1
             inc = _solve8(Hm, bv, lam)
             extrap = torch.where(lam < 0.001,
                                  torch.sqrt(torch.sqrt(0.001 / torch.clamp(lam, min=1e-12))),
@@ -369,16 +391,16 @@ def track_coarse(template: Template, target_pyr: List[torch.Tensor],
 
     ok_t = torch.tensor(ok, device=dev)
     ok_t = ok_t & (aff[0].abs() <= 1.2) & (aff[1].abs() <= 200.0)
-    return TrackResult(R=R, t=t, aff=aff, ok=ok_t,
-                       residuals=torch.stack(level_res), flow=flow)
+    return TrackResult(R=R, t=t, aff=aff, ok=ok_t, residuals=torch.stack(level_res),
+                       flow=flow, lm=torch.tensor(lm, dtype=torch.int32, device=dev))
 
 
-def score_hypotheses(template: Template, coarse_img: torch.Tensor, K_lvl,
-                     lvl: int, R_b, t_b, aff0, exp_ref, exp_new, aff_ref,
-                     cfg: Config, n_iters: int = 10,
-                     packed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Fixed-iteration GN of all N hypotheses at the coarsest level, as one
-    batch. Returns (N,) mean energy E/n, inf for diverged hypotheses."""
+def score_hypotheses_plain(template: Template, coarse_img: torch.Tensor, K_lvl,
+                           lvl: int, R_b, t_b, aff0, exp_ref, exp_new, aff_ref,
+                           cfg: Config, n_iters: int = SCORE_ITERS,
+                           packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain version of score_hypotheses (all N hypotheses as one batch
+    of torch ops); runs on any device."""
     if packed is None:
         packed = pack_pyramid_level(coarse_img)
     tm = (template.u[lvl], template.v[lvl], template.idepth[lvl],
@@ -387,7 +409,6 @@ def score_hypotheses(template: Template, coarse_img: torch.Tensor, K_lvl,
     cutoff = cfg.coarse_cutoff_th
     b0_ref = aff_ref[1]
     N = R_b.shape[0]
-    trace.count("hyp_scored", N)
 
     def res_at(R_, t_, aff_):
         a_r, b_r = rel_affine(exp_ref, exp_new, aff_ref, aff_)
@@ -420,29 +441,253 @@ def score_hypotheses(template: Template, coarse_img: torch.Tensor, K_lvl,
     return torch.where(bad, torch.full_like(mean_e, float("inf")), mean_e)
 
 
+# ------------------------------------------------ the kernels (csrc/tracker.cu)
+_vp = ctypes.c_void_p
+
+
+class _Level(ctypes.Structure):
+    """csrc/tracker.cu's `Level`, field for field."""
+    _fields_ = [("u", _vp), ("v", _vp), ("idepth", _vp), ("color", _vp), ("valid", _vp),
+                ("img", _vp), ("K", _vp), ("n", ctypes.c_int), ("H", ctypes.c_int),
+                ("W", ctypes.c_int), ("max_iters", ctypes.c_int)]
+
+
+class _Args(ctypes.Structure):
+    """csrc/tracker.cu's `TrackArgs`, field for field."""
+    _fields_ = [("lv", _Level * MAX_LEVELS), ("n_levels", ctypes.c_int),
+                ("coarsest", ctypes.c_int), ("n_hyp", ctypes.c_int),
+                ("score_iters", ctypes.c_int), ("R0", _vp), ("t0", _vp), ("aff0", _vp),
+                ("exp_ref", _vp), ("exp_new", _vp), ("aff_ref", _vp), ("min_res", _vp),
+                ("n_min_res", ctypes.c_int), ("precond", ctypes.c_float * 8),
+                ("huber", ctypes.c_double), ("cutoff", ctypes.c_double), ("out", _vp),
+                ("ok", _vp), ("rec", _vp)]
+
+
+def bind_kernels(lib: ctypes.CDLL):
+    """(score, coarse): the two C entries of a built csrc/tracker.cu, their
+    argument types set; raises if the library's TrackArgs is not _Args."""
+    size = lib.hslam_track_args_size
+    size.argtypes = []
+    size.restype = ctypes.c_int
+    if size() != ctypes.sizeof(_Args):
+        raise RuntimeError(f"csrc/tracker.cu's TrackArgs has {size()} bytes, "
+                           f"ops/tracker._Args {ctypes.sizeof(_Args)}")
+    fns = []
+    for name in ("hslam_track_score", "hslam_track_coarse"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(_Args), _vp]
+        fn.restype = ctypes.c_int
+        fns.append(fn)
+    return tuple(fns)
+
+
+def _kernels():
+    global _fns
+    if _fns is None:
+        from .. import _cuda
+
+        _fns = bind_kernels(_cuda.load("tracker"))
+    return _fns
+
+
+def _ptr(name: str, x, dev, numel: Optional[int] = None, shape=None,
+         dtype=torch.float32) -> int:
+    """x's pointer, once x is a contiguous `dtype` tensor on `dev` of the
+    given element count or shape; raises ValueError on anything else."""
+    if (not isinstance(x, torch.Tensor) or x.device != dev or x.dtype != dtype
+            or not x.is_contiguous() or (numel is not None and x.numel() != numel)
+            or (shape is not None and tuple(x.shape) != tuple(shape))):
+        what = (f"{type(x).__name__}" if not isinstance(x, torch.Tensor) else
+                f"{x.dtype} {tuple(x.shape)} on {x.device}"
+                f"{'' if x.is_contiguous() else ', not contiguous'}")
+        want = (f" of shape {tuple(shape)}" if shape is not None else
+                f" of {numel} elements" if numel is not None else "")
+        raise ValueError(f"the tracker kernel takes {name} as a contiguous {dtype} "
+                         f"tensor{want} on {dev}, got {what}")
+    return x.data_ptr()
+
+
+def _kernel_args(template: Template, levels: dict, R0, t0, aff0, exp_ref, exp_new,
+                 aff_ref, cfg: Config, n_levels: int, coarsest: int, n_hyp: int = 0,
+                 min_res=None) -> _Args:
+    """The kernels' arguments, every tensor checked. `levels` maps each
+    level the kernel reads to (target image (H, W, 3), its (4,) intrinsics);
+    n_hyp > 0: R0 (n_hyp, 3, 3) and t0 (n_hyp, 3) are the hypotheses to
+    score. The outputs are the caller's to set."""
+    dev = R0.device if isinstance(R0, torch.Tensor) else None
+    if not 1 <= n_levels <= MAX_LEVELS or not 0 <= coarsest < n_levels:
+        raise ValueError(f"the tracker kernel takes 1..{MAX_LEVELS} levels and a coarsest "
+                         f"level below them, got {n_levels} levels, coarsest {coarsest}")
+    a = _Args()
+    a.n_levels, a.coarsest, a.n_hyp, a.score_iters = n_levels, coarsest, n_hyp, SCORE_ITERS
+    caps = cfg.tracker_iters_per_level
+    n_tpl = len(template.u)
+    for lvl, (img, K) in levels.items():
+        if not 0 <= lvl < min(n_levels, n_tpl):
+            raise ValueError(f"level {lvl} is outside the pyramid or the template")
+        C = template.u[lvl].shape[0] if isinstance(template.u[lvl], torch.Tensor) else -1
+        if not 0 <= C <= TEMPLATE_CAP:
+            raise ValueError(f"the tracker kernel takes up to {TEMPLATE_CAP} template points "
+                             f"a level, got {C} at level {lvl}")
+        if (not isinstance(img, torch.Tensor) or img.dim() != 3 or img.shape[2] != 3
+                or img.shape[0] < 2 or img.shape[1] < 2):
+            raise ValueError(f"the tracker kernel takes a level as (H, W, 3), H, W >= 2, got "
+                             f"{getattr(img, 'shape', type(img).__name__)} at level {lvl}")
+        lv = a.lv[lvl]
+        lv.u = _ptr("template.u", template.u[lvl], dev, numel=C)
+        lv.v = _ptr("template.v", template.v[lvl], dev, numel=C)
+        lv.idepth = _ptr("template.idepth", template.idepth[lvl], dev, numel=C)
+        lv.color = _ptr("template.color", template.color[lvl], dev, numel=C)
+        lv.valid = _ptr("template.valid", template.valid[lvl], dev, numel=C, dtype=torch.bool)
+        lv.img = _ptr("a pyramid level", img, dev)
+        lv.K = _ptr("a level's intrinsics", K, dev, numel=4)
+        lv.n, lv.H, lv.W = C, img.shape[0], img.shape[1]
+        lv.max_iters = caps[min(lvl, len(caps) - 1)]
+    if n_hyp:
+        a.R0 = _ptr("R_b", R0, dev, shape=(n_hyp, 3, 3))
+        a.t0 = _ptr("t_b", t0, dev, shape=(n_hyp, 3))
+    else:
+        a.R0 = _ptr("R0", R0, dev, numel=9)
+        a.t0 = _ptr("t0", t0, dev, numel=3)
+    a.aff0 = _ptr("aff0", aff0, dev, numel=2)
+    a.exp_ref = _ptr("exp_ref", exp_ref, dev, numel=1)
+    a.exp_new = _ptr("exp_new", exp_new, dev, numel=1)
+    a.aff_ref = _ptr("aff_ref", aff_ref, dev, numel=2)
+    if min_res is not None:
+        a.min_res = _ptr("min_res_for_abort", min_res, dev)
+        a.n_min_res = min_res.numel()
+        if a.n_min_res < 1:
+            raise ValueError("min_res_for_abort is empty")
+    a.precond[:] = _PRECOND
+    a.huber, a.cutoff = float(cfg.huber_th), float(cfg.coarse_cutoff_th)
+    return a
+
+
+def _launch(fn, args: _Args, dev: torch.device) -> None:
+    """One launch of a kernel entry on dev's current stream (the host
+    build takes a CPU device and no stream); raises if it was refused."""
+    global kernel_launches
+    stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None
+    err = fn(ctypes.byref(args), stream)
+    if err != 0:
+        raise RuntimeError(f"tracker kernel launch failed: cudaError {err}")
+    with _count_lock:
+        kernel_launches += 1
+
+
+def track_coarse_kernel(template: Template, target_pyr: List[torch.Tensor], K_pyr, R0, t0,
+                        aff0, exp_ref, exp_new, aff_ref, cfg: Config,
+                        coarsest_lvl: Optional[int] = None,
+                        min_res_for_abort=None) -> TrackResult:
+    """track_coarse in one launch of csrc/tracker.cu's coarse-to-fine
+    kernel."""
+    dev = R0.device
+    n_levels = len(target_pyr)
+    coarsest = n_levels - 1 if coarsest_lvl is None else int(coarsest_lvl)
+    if not isinstance(K_pyr, torch.Tensor) or K_pyr.dim() != 2 or K_pyr.shape[0] < n_levels:
+        raise ValueError("the tracker kernel takes K_pyr as (L, 4), one row a level")
+    levels = {lvl: (target_pyr[lvl], K_pyr[lvl])
+              for lvl in range(min(coarsest, n_levels - 1) + 1)}
+    a = _kernel_args(template, levels, R0, t0, aff0, exp_ref, exp_new, aff_ref, cfg,
+                     n_levels, coarsest, min_res=min_res_for_abort)
+    out = torch.empty(17 + n_levels, dtype=torch.float32, device=dev)
+    ok = torch.empty((), dtype=torch.bool, device=dev)
+    lm = torch.empty((2, n_levels), dtype=torch.int32, device=dev)
+    a.out, a.ok, a.rec = out.data_ptr(), ok.data_ptr(), lm.data_ptr()
+    _launch(_kernels()[1], a, dev)
+    trace.count("track_kernel")
+    return TrackResult(R=out[:9].view(3, 3), t=out[9:12], aff=out[12:14], ok=ok,
+                       residuals=out[14:14 + n_levels], flow=out[14 + n_levels:], lm=lm)
+
+
+def score_hypotheses_kernel(template: Template, coarse_img, K_lvl, lvl: int, R_b, t_b, aff0,
+                            exp_ref, exp_new, aff_ref, cfg: Config,
+                            n_iters: int = SCORE_ITERS) -> torch.Tensor:
+    """score_hypotheses in one launch of csrc/tracker.cu's scoring kernel,
+    one block per hypothesis."""
+    dev = R_b.device
+    N = R_b.shape[0] if isinstance(R_b, torch.Tensor) and R_b.dim() == 3 else 0
+    if N < 1:
+        raise ValueError("the scoring kernel takes R_b as (N, 3, 3), N >= 1")
+    a = _kernel_args(template, {lvl: (coarse_img, K_lvl)}, R_b, t_b, aff0, exp_ref, exp_new,
+                     aff_ref, cfg, lvl + 1, lvl, n_hyp=N)
+    a.score_iters = n_iters
+    scores = torch.empty(N, dtype=torch.float32, device=dev)
+    a.out = scores.data_ptr()
+    _launch(_kernels()[0], a, dev)
+    return scores
+
+
+def _route(x) -> bool:
+    """True for the kernel (a CUDA tensor), False for the plain version (a
+    CPU tensor); raises for any other device."""
+    global plain_calls
+    if x.device.type == "cuda":
+        return True
+    if x.device.type != "cpu":
+        raise ValueError(f"no tracker route for device {x.device}")
+    with _count_lock:
+        plain_calls += 1
+    return False
+
+
+def track_coarse(template: Template, target_pyr: List[torch.Tensor],
+                 K_pyr: torch.Tensor, R0, t0, aff0, exp_ref, exp_new, aff_ref,
+                 cfg: Config, coarsest_lvl: Optional[int] = None,
+                 min_res_for_abort: Optional[torch.Tensor] = None,
+                 packed_pyr: Optional[List[torch.Tensor]] = None) -> TrackResult:
+    """Coarse-to-fine LM alignment of one motion hypothesis
+    (trackNewestCoarse): cutoff doubling, per-level iteration caps, lambda
+    schedule, extrapolation, early abort and the affine sanity check. CUDA
+    tensors: one kernel launch and no host read (`packed_pyr` is not used);
+    CPU tensors: the plain version."""
+    if _route(R0):
+        return track_coarse_kernel(template, target_pyr, K_pyr, R0, t0, aff0, exp_ref,
+                                   exp_new, aff_ref, cfg, coarsest_lvl, min_res_for_abort)
+    return track_coarse_plain(template, target_pyr, K_pyr, R0, t0, aff0, exp_ref, exp_new,
+                              aff_ref, cfg, coarsest_lvl, min_res_for_abort, packed_pyr)
+
+
+def score_hypotheses(template: Template, coarse_img: torch.Tensor, K_lvl,
+                     lvl: int, R_b, t_b, aff0, exp_ref, exp_new, aff_ref,
+                     cfg: Config, n_iters: int = SCORE_ITERS,
+                     packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fixed-iteration GN of all N hypotheses at the coarsest level. Returns
+    (N,) mean energy E/n, inf for diverged hypotheses. CUDA tensors: one
+    kernel launch (`packed` is not used); CPU tensors: the plain version."""
+    trace.count("hyp_scored", R_b.shape[0])
+    if _route(R_b):
+        return score_hypotheses_kernel(template, coarse_img, K_lvl, lvl, R_b, t_b, aff0,
+                                       exp_ref, exp_new, aff_ref, cfg, n_iters)
+    return score_hypotheses_plain(template, coarse_img, K_lvl, lvl, R_b, t_b, aff0, exp_ref,
+                                  exp_new, aff_ref, cfg, n_iters, packed)
+
+
 def track_coarse_multi(template: Template, target_pyr: List[torch.Tensor],
                        K_pyr, R_b, t_b, aff0, exp_ref, exp_new, aff_ref,
                        cfg: Config, coarsest_lvl: Optional[int] = None,
                        min_res_for_abort=None) -> Tuple[TrackResult, torch.Tensor]:
     """Score every hypothesis at the coarsest level, then run the full
-    coarse-to-fine LM on the argmin. Returns (result, best_idx)."""
+    coarse-to-fine LM on the argmin. Returns (result, best_idx). The argmin
+    picks the start on the device: no host read."""
     n_levels = len(target_pyr)
     if coarsest_lvl is None:
         coarsest_lvl = n_levels - 1
-    packed_pyr = [pack_pyramid_level(t) for t in target_pyr]
+    R_b, t_b = R_b.contiguous(), t_b.contiguous()
+    packed_pyr = (None if R_b.device.type == "cuda"
+                  else [pack_pyramid_level(t) for t in target_pyr])
     with trace.span("track.score"):
         scores = score_hypotheses(
             template, target_pyr[coarsest_lvl], K_pyr[coarsest_lvl], coarsest_lvl,
             R_b, t_b, aff0, exp_ref, exp_new, aff_ref, cfg,
-            packed=packed_pyr[coarsest_lvl])
+            packed=None if packed_pyr is None else packed_pyr[coarsest_lvl])
         best = torch.argmin(scores)
-    trace.count("host_sync", 2)        # indexing by the device scalar `best` reads it
-    res = track_coarse(template, target_pyr, K_pyr, R_b[best], t_b[best], aff0,
-                       exp_ref, exp_new, aff_ref, cfg, coarsest_lvl=coarsest_lvl,
-                       min_res_for_abort=min_res_for_abort,
+        pick = best.reshape(1)
+    res = track_coarse(template, target_pyr, K_pyr, R_b.index_select(0, pick)[0],
+                       t_b.index_select(0, pick)[0], aff0, exp_ref, exp_new, aff_ref, cfg,
+                       coarsest_lvl=coarsest_lvl, min_res_for_abort=min_res_for_abort,
                        packed_pyr=packed_pyr)
-    trace.count("host_sync")
-    return res._replace(ok=res.ok & torch.isfinite(scores[best])), best
+    return res._replace(ok=res.ok & torch.isfinite(scores.index_select(0, pick)[0])), best
 
 
 def _rigid_inv(T: torch.Tensor) -> torch.Tensor:
@@ -510,6 +755,7 @@ class TrackStepOut(NamedTuple):
     residuals: torch.Tensor
     flow: torch.Tensor
     c2w: torch.Tensor               # (4, 4) new camToWorld
+    lm: Optional[torch.Tensor] = None   # TrackResult.lm
 
 
 def track_step(template: Template, img: torch.Tensor, calib_value, ref_c2w,
@@ -530,4 +776,4 @@ def track_step(template: Template, img: torch.Tensor, calib_value, ref_c2w,
                                 aff_ref, cfg, coarsest_lvl=n_levels - 1)
     c2w = ref_c2w @ _rigid_inv(_se3_4x4(res.R, res.t))
     return TrackStepOut(pyr=pyr, grads=grads, R=res.R, t=res.t, aff=res.aff, ok=res.ok,
-                        residuals=res.residuals, flow=res.flow, c2w=c2w)
+                        residuals=res.residuals, flow=res.flow, c2w=c2w, lm=res.lm)

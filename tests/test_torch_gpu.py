@@ -1,6 +1,7 @@
 """Card-only tests of the port: the hand-written pyramid kernel against its
-plain torch version on the same CUDA tensors, the wrapper's refusals, and
-the hybrid modules (features, matching, init refinement, PnP, the fused
+plain torch version on the same CUDA tensors, the wrapper's refusals, the
+tracker's kernels (csrc/tracker.cu) against their plain versions at the
+benchmark cell's shapes, and the hybrid modules (features, matching, init refinement, PnP, the fused
 track_step) on CUDA against the CPU, and the point-sharded BA over a world
 of one on NCCL. Every test here needs a CUDA device and skips without one. The file imports no jax, so on a GPU host without jax it runs without
 tests/conftest.py (which imports jax):
@@ -276,6 +277,164 @@ def test_track_step_launches_the_kernel(cuda_device):
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=0, atol=1e-4)
     torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=0, atol=1e-4)
     np.testing.assert_allclose(out["cuda"][1].numpy(), t, atol=3e-3)
+
+
+# ------------------------------------------------ the tracker's kernels
+@pytest.fixture
+def tracker_case(cuda_device):
+    """The cell's shapes: 480x640, 6 levels, 32 hypotheses, the template at
+    its cap, the stated caps (10, 20, 50, 50, 50, 50)."""
+    from hslam_tpu_torch.config import Config
+    from hslam_tpu_torch.io.synthetic import tracker_case as make
+    c = make(device=cuda_device)
+    c["cfg"] = Config()
+    return c
+
+
+def _start(c, k):
+    return (c["R_b"][k], c["t_b"][k], c["aff0"], c["exp_ref"], c["exp_new"], c["aff_ref"])
+
+
+def _shift_px(c, a, b):
+    """The worst valid level-0 template point's shift between the poses of
+    two results, px (the benchmark's track_px_gap)."""
+    tpl = c["template"]
+    fx, fy, cx, cy = (float(x) for x in c["K_pyr"][0])
+    val = tpl.valid[0]
+    px = (tpl.u[0][val].double() - cx) / fx
+    py = (tpl.v[0][val].double() - cy) / fy
+    idp = tpl.idepth[0][val].double()
+
+    def proj(res):
+        R, t = res.R.double(), res.t.double()
+        X, Y, Z = (R[i, 0] * px + R[i, 1] * py + R[i, 2] + t[i] * idp for i in range(3))
+        return fx * X / Z + cx, fy * Y / Z + cy
+    (ua, va), (ub, vb) = proj(a), proj(b)
+    return float(torch.sqrt((ua - ub) ** 2 + (va - vb) ** 2).max())
+
+
+@pytest.mark.gpu
+def test_tracker_scoring_kernel_matches_plain_on_card(tracker_case):
+    """32 hypotheses, one block each: the scores to 1e-4, the same inf
+    pattern (the four far starts), the same choice."""
+    from hslam_tpu_torch.ops import tracker as T
+    c = tracker_case
+    args = (c["template"], c["target_pyr"][5], c["K_pyr"][5], 5, c["R_b"], c["t_b"], c["aff0"],
+            c["exp_ref"], c["exp_new"], c["aff_ref"], c["cfg"])
+    launches, plain = T.kernel_launches, T.plain_calls
+    sk = T.score_hypotheses(*args)
+    torch.cuda.synchronize()
+    assert T.kernel_launches == launches + 1 and T.plain_calls == plain
+    sp = T.score_hypotheses_plain(*args)
+    f = torch.isfinite(sp)
+    assert torch.equal(f, torch.isfinite(sk)) and int(f.sum()) == 28
+    torch.testing.assert_close(sk[f], sp[f], rtol=1e-4, atol=0)
+    assert int(sk.argmin()) == int(sp.argmin())
+
+
+@pytest.mark.gpu
+def test_tracker_kernel_matches_plain_on_card(tracker_case):
+    """The coarse-to-fine kernel against track_coarse_plain on the same CUDA
+    tensors, from eight starts, then with the cutoff forced to double (and
+    the level repeated) and with an abort forced by finite thresholds: the
+    same decisions, the worst template point within 0.01 px, aff within
+    1e-3; the per-level iteration counts equal in most calls."""
+    import dataclasses
+    from hslam_tpu_torch.ops import tracker as T
+    c = tracker_case
+    tpl, pyr, K, cfg = c["template"], c["target_pyr"], c["K_pyr"], c["cfg"]
+    calls = [(k, cfg, None) for k in range(8)]
+    calls += [(0, dataclasses.replace(cfg, coarse_cutoff_th=6.0), None),
+              (0, cfg, torch.full((6,), 0.1, device=K.device)),
+              (1, cfg, torch.tensor([0.2, 10.0], device=K.device))]
+    same_counts = 0
+    for k, cf, mr in calls:
+        q = T.track_coarse(tpl, pyr, K, *_start(c, k), cf, min_res_for_abort=mr)
+        p = T.track_coarse_plain(tpl, pyr, K, *_start(c, k), cf, min_res_for_abort=mr)
+        assert bool(q.ok) == bool(p.ok), (k, q.lm, p.lm)
+        same_counts += int(torch.equal(q.lm, p.lm))
+        assert torch.equal(q.lm[1], p.lm[1]) and torch.equal(q.residuals.isnan(), p.residuals.isnan())
+        assert _shift_px(c, q, p) <= 0.01
+        torch.testing.assert_close(q.aff, p.aff, rtol=0, atol=1e-3)
+        if cf.coarse_cutoff_th == 6.0:
+            assert int(q.lm[1].sum()) > 0 and bool(q.ok)
+        if mr is not None:
+            assert not bool(q.ok)
+    assert 2 * same_counts > len(calls)
+
+
+@pytest.mark.gpu
+def test_track_coarse_multi_chooses_as_plain_on_card(tracker_case):
+    """The scoring and the refinement with the argmin on the device: the
+    plain route's choice and answer."""
+    from hslam_tpu_torch.ops import tracker as T
+    c = tracker_case
+    tpl, pyr, K, cfg = c["template"], c["target_pyr"], c["K_pyr"], c["cfg"]
+    rest = (c["aff0"], c["exp_ref"], c["exp_new"], c["aff_ref"], cfg)
+    res, best = T.track_coarse_multi(tpl, pyr, K, c["R_b"], c["t_b"], *rest)
+    sp = T.score_hypotheses_plain(tpl, pyr[5], K[5], 5, c["R_b"], c["t_b"], *rest)
+    b = int(sp.argmin())
+    p = T.track_coarse_plain(tpl, pyr, K, c["R_b"][b], c["t_b"][b], *rest)
+    assert int(best) == b and bool(res.ok) and bool(p.ok)
+    assert _shift_px(c, res, p) <= 0.01
+    np.testing.assert_allclose(res.t.cpu().numpy(), c["t"], atol=3e-3)
+
+
+@pytest.mark.gpu
+def test_tracker_kernels_give_identical_bits(tracker_case):
+    """20 calls in a row, then two Python threads at once: fixed-order sums,
+    so every call gives the first call's bits."""
+    import threading
+    from hslam_tpu_torch.ops import tracker as T
+    c = tracker_case
+    tpl, pyr, K, cfg = c["template"], c["target_pyr"], c["K_pyr"], c["cfg"]
+
+    def once():
+        res, best = T.track_coarse_multi(tpl, pyr, K, c["R_b"], c["t_b"], c["aff0"],
+                                         c["exp_ref"], c["exp_new"], c["aff_ref"], cfg)
+        return torch.cat([x.reshape(-1).float().view(torch.int32) for x in
+                          (res.R, res.t, res.aff, res.residuals, res.flow, res.ok.float())]
+                         + [res.lm.reshape(-1), best.reshape(1).int()])
+
+    ref = once()
+
+    def run(n, out):
+        for _ in range(n):
+            out.append(once())
+
+    outs, a, b = [], [], []
+    run(20, outs)
+    threads = [threading.Thread(target=run, args=(10, o)) for o in (a, b)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    torch.cuda.synchronize()
+    assert len(outs + a + b) == 40 and all(torch.equal(o, ref) for o in outs + a + b)
+
+
+@pytest.mark.gpu
+def test_track_step_takes_the_tracker_kernels(cuda_device):
+    """track_step on the card: two launches a frame (scoring, then the
+    coarse-to-fine solve) and no plain call."""
+    from hslam_tpu_torch.config import Config
+    from hslam_tpu_torch.io.synthetic import tracker_case as make
+    from hslam_tpu_torch.ops import tracker as T
+    c = make(device=cuda_device)
+    frame = torch.from_numpy(np.round(c["target_pyr"][0][..., 0].cpu().numpy())
+                             .clip(0, 255).astype(np.uint8)).to(cuda_device)
+    eye = torch.eye(4, device=cuda_device)
+    H, W = frame.shape
+    calib = torch.tensor([0.5 * W, 0.5 * W, W / 2 - 0.5, H / 2 - 0.5], device=cuda_device)
+    launches, plain = T.kernel_launches, T.plain_calls
+    for _ in range(3):
+        o = T.track_step(c["template"], frame, calib, eye, eye, eye, False, c["aff0"],
+                         c["exp_ref"], c["exp_new"], c["aff_ref"], Config(), 6)
+    torch.cuda.synchronize()
+    assert T.kernel_launches == launches + 6 and T.plain_calls == plain
+    assert bool(o.ok) and o.lm.shape == (2, 6) and int(o.lm[0].sum()) > 0
+    np.testing.assert_allclose(o.t.cpu().numpy(), c["t"], atol=3e-3)
 
 
 @pytest.mark.gpu

@@ -246,13 +246,13 @@ def test_follower_replays_rank0_bit_for_bit(monkeypatch, case):
 
 def test_replay_of_a_stream_that_drains_drops_traces_and_keyframes(monkeypatch):
     """Rank 0's mapping thread held twice while frames queue up (the queued
-    entry enqueues as it is called): its policy drains (drops all but the
-    freshest), drops every second frame in catch-up, traces and keyframes.
-    The follower, which queues frames as fast as it likes, executes that
-    stream and ends with rank 0's shells."""
+    entry on live input enqueues as it is called): its policy drains (drops
+    all but the freshest), drops every second frame in catch-up, traces and
+    keyframes. The follower, which queues frames as fast as it likes,
+    executes that stream and ends with rank 0's shells."""
     frames = _sweep(26)
     _scripted(monkeypatch)
-    lead = _system()
+    lead = _system(live_input=True)
     gates = [threading.Event(), threading.Event()]
     entered = [threading.Event(), threading.Event()]
     execute = lead._map_execute
@@ -295,7 +295,7 @@ def test_replay_of_a_stream_that_drains_drops_traces_and_keyframes(monkeypatch):
     assert any(d["extra"] >= 0 for d in decs), "no catch-up drop"
     assert {S.KF_FORCED, S.TRACE} <= actions and lead.n_frames_skipped >= 10
     _scripted(monkeypatch, lead)
-    fol = _run(_system(), frames, "queued")
+    fol = _run(_system(live_input=True), frames, "queued")
     _assert_same_shells(_shells(lead), _shells(fol))
     assert (fol.next_kf_id, fol.n_frames_skipped) == (lead.next_kf_id, lead.n_frames_skipped)
 

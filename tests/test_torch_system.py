@@ -15,6 +15,7 @@ fault C1 and the two packages draw different random numbers (C3), so the
 runs are compared by what they achieve."""
 import copy
 import sys
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -347,6 +348,44 @@ def test_pipelined_threads_under_fast_switching(monkeypatch):
     assert len(mapped) + slam.n_frames_skipped == len(enqueued) > 0
     assert slam.initialized and not slam.is_lost
     assert all(s.pose_valid for s in slam.shells)
+    assert ate_rmse(centres, _centres(slam, range(len(frames)))) < 0.02
+
+
+@pytest.mark.parametrize("live", [False, True], ids=["replay", "live_input"])
+def test_replay_waits_for_a_slow_mapper(monkeypatch, live):
+    """A mapping thread slower than the tracker (each step held 0.15 s). On
+    a replay (the default) the tracking thread hands a frame over only once
+    the mapper is idle: every step finds no frame queued behind its own, and
+    none is dropped. With live_input the tracking thread never waits, and
+    frames queue up behind the mapper."""
+    frames, centres = make_sequence(Scene(H, W, FX, n_blobs=16), 14,
+                                    lambda i: sweep_xi(i / 10.0))
+    slam = _port(sequential=False, live_input=live)
+    behind = []
+    pop, execute = slam._pop_step, slam._map_execute
+
+    def counted_pop():
+        behind.append(len(slam._queue) - 1)
+        return pop()
+
+    def slow(*step):
+        time.sleep(0.15)
+        return execute(*step)
+    monkeypatch.setattr(slam, "_pop_step", counted_pop)
+    monkeypatch.setattr(slam, "_map_execute", slow)
+    try:
+        for i, f in enumerate(frames):
+            slam.process_frame_pipelined(f, i / 10.0)
+        slam.flush_pipeline()
+        slam.finish()
+    finally:
+        slam.close()
+    assert len(behind) >= 5 and slam.initialized
+    if live:
+        assert max(behind) > 0
+        return
+    assert max(behind) == 0 and slam.n_frames_skipped == 0
+    assert not slam.is_lost and all(s.pose_valid for s in slam.shells)
     assert ate_rmse(centres, _centres(slam, range(len(frames)))) < 0.02
 
 

@@ -3,7 +3,8 @@ with the small config of tests/test_torch_system.py: (a) off by default it
 records nothing; (b) on the sequential entry its spans nest on one thread
 and carry their frame; (c) on the pipelined entry with the mapping thread
 no parent link crosses threads and counts from several threads add up;
-(d) `lm_iter` counts the LM's solves; (e) `host_sync` counts the program's
+(d) `lm_iter` counts the LM's solves, from the record each result
+carries; (e) `host_sync` counts the program's
 host reads of tensors; (f) its clock is the one the benchmark maps onto
 the profiler's; (g) the self-time arithmetic of `host_policy_ms`; (h) the
 latency records are the spans' own stamps; and run_sequence --trace FILE
@@ -39,7 +40,8 @@ N_FRAMES = 9
 
 TABLE = {"frame", "pyramid", "track", "track.score", "track.level", "track.serial",
          "track.reloc", "calib.observe", "calib.fit", "kf", "kf.trace", "kf.features",
-         "kf.ba", "kf.finalize", "nonkf", "init", "map.step", "lc.detect", "lc.correct"}
+         "kf.ba", "kf.finalize", "nonkf", "init", "map.step", "lc.detect", "lc.correct",
+         "flush"}
 # the Tensor methods by which the host reads a tensor's value; indexing by
 # a 0-d integer tensor reads that tensor too (inside C++, past the others)
 READS = ("__float__", "__bool__", "__int__", "item", "tolist", "cpu", "__getitem__")
@@ -238,6 +240,28 @@ def test_lm_iter_counts_the_solves_of_track_coarse(seq_run):
     assert seq_run.snap["counters"]["lm_iter"] == seq_run.solves
     cut = seq_run.snap["counters"].get("lm_cutoff_double", 0)
     assert 0 <= cut <= seq_run.solves
+
+
+def test_lm_counts_come_from_the_pulled_record():
+    """(d) The kernel's route counts nothing while it runs: `lm_iter` and
+    `lm_cutoff_double` come from the result's record when the system pulls
+    it, in the read it already makes, once per iteration and doubling."""
+    res = trk.TrackResult(R=torch.eye(3), t=torch.zeros(3), aff=torch.zeros(2),
+                          ok=torch.tensor(True), residuals=torch.tensor([0.5, 1.0, 2.0]),
+                          flow=torch.tensor([1.0, 0.0, 2.0]),
+                          lm=torch.tensor([[1, 3, 10], [0, 2, 1]], dtype=torch.int32))
+    trace.enable()
+    try:
+        with trace.span("frame", frame=3):
+            R, t, aff, ok, r, flow = SLAMSystem._pull_track(res)
+            SLAMSystem._pull_track(res._replace(lm=None))
+    finally:
+        trace.disable()
+    snap = trace.snapshot()
+    assert snap["counters"] == {"host_sync": 2, "lm_iter": 14, "lm_cutoff_double": 3}
+    assert snap["spans"][0].counts == snap["counters"]
+    assert ok and np.array_equal(r, [0.5, 1.0, 2.0]) and np.array_equal(flow, [1.0, 0.0, 2.0])
+    assert np.array_equal(R, np.eye(3))
 
 
 def test_host_sync_counts_the_program_reads(seq_run):

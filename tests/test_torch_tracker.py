@@ -1,6 +1,16 @@
 """hslam_tpu_torch.ops.tracker and ops.klt against the JAX package, from the
 same numpy inputs: template build, one residual pass, batched hypothesis
-scoring, the full coarse-to-fine track, and KLT's pure-translation case."""
+scoring, the full coarse-to-fine track, and KLT's pure-translation case.
+Then the kernels of csrc/tracker.cu: the wrapper's routes and refusals, and
+the kernels' host build (each block with one thread) against the plain
+versions and the JAX package."""
+import ctypes
+import dataclasses
+import functools
+import shutil
+import subprocess
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +25,7 @@ from hslam_tpu.ops.pyramid import downsample2 as jdown
 from hslam_tpu.utils.interp import pack_cells
 from hslam_tpu_torch.config import Config
 from hslam_tpu_torch.convert import from_numpy
-from hslam_tpu_torch.io.synthetic import Scene, se3_exp_np
+from hslam_tpu_torch.io.synthetic import Scene, se3_exp_np, tracker_case
 from hslam_tpu_torch.ops import klt as tklt
 from hslam_tpu_torch.ops import tracker as ttrk
 from hslam_tpu_torch.utils.segsum import bin_sums
@@ -285,3 +295,184 @@ def test_template_bin_sums_fixed_order(n_bins):
     assert torch.equal(out, ref)
     perm = torch.randperm(300, generator=g)
     assert torch.equal(bin_sums(idx[perm], vals[perm], n_bins), out)
+
+
+# ------------------------------------------------ the kernels (csrc/tracker.cu)
+KCFG = Config(pyr_levels=3, tracker_iters_per_level=(6, 10, 10))
+
+
+@pytest.fixture(scope="module")
+def case():
+    return tracker_case(96, 128, 3, n_points=300)
+
+
+@pytest.fixture(scope="module")
+def host_library(tmp_path_factory):
+    """csrc/tracker.cu built for the host (-DHSLAM_HOST_EMULATION: each block
+    runs with one thread) and bound as the CUDA build is."""
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs a C++ compiler for the tracker kernel's host build")
+    out = tmp_path_factory.mktemp("tracker_host") / "libtracker_host.so"
+    src = Path(ttrk.__file__).resolve().parents[1] / "csrc" / "tracker.cu"
+    subprocess.run([cxx, "-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC",
+                    "-DHSLAM_HOST_EMULATION", "-o", str(out), str(src)],
+                   check=True, capture_output=True, timeout=300)
+    return ttrk.bind_kernels(ctypes.CDLL(str(out)))
+
+
+@pytest.fixture
+def host_kernels(host_library, monkeypatch):
+    """The kernel entries run the host build for this test."""
+    monkeypatch.setattr(ttrk, "_fns", host_library)
+
+
+def _jax(x):
+    return jnp.asarray(x.numpy())
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_track_coarse(cutoff):
+    return _jit(jtrk.track_coarse, cfg=JConfig(pyr_levels=KCFG.pyr_levels,
+                                               tracker_iters_per_level=KCFG.tracker_iters_per_level,
+                                               coarse_cutoff_th=cutoff))
+
+
+def _start(case, k):
+    return (case["R_b"][k], case["t_b"][k], case["aff0"], case["exp_ref"], case["exp_new"],
+            case["aff_ref"])
+
+
+def test_cpu_tensors_route_to_plain_version(case):
+    launches, plain = ttrk.kernel_launches, ttrk.plain_calls
+    tpl, pyr, K = case["template"], case["target_pyr"], case["K_pyr"]
+    res, best = ttrk.track_coarse_multi(tpl, pyr, K, case["R_b"], case["t_b"], case["aff0"],
+                                        case["exp_ref"], case["exp_new"], case["aff_ref"], KCFG)
+    assert ttrk.plain_calls == plain + 2 and ttrk.kernel_launches == launches
+    assert res.lm.dtype == torch.int32 and res.lm.shape == (2, 3)
+    assert int(res.lm[0].sum()) > 0 and bool(res.ok) and 0 <= int(best) < 28
+
+
+def _refusals(case):
+    tpl, pyr, K = case["template"], case["target_pyr"], case["K_pyr"]
+    R0, t0, aff0, e_ref, e_new, aff_ref = _start(case, 0)
+    base = dict(template=tpl, target_pyr=pyr, K_pyr=K, R0=R0, t0=t0, aff0=aff0, exp_ref=e_ref,
+                exp_new=e_new, aff_ref=aff_ref, cfg=KCFG)
+    big = torch.zeros(ttrk.TEMPLATE_CAP + 1)
+    over = tpl._replace(u=[big] + tpl.u[1:], v=[big] + tpl.v[1:], idepth=[big] + tpl.idepth[1:],
+                        color=[big] + tpl.color[1:],
+                        valid=[torch.zeros(big.shape, dtype=torch.bool)] + tpl.valid[1:])
+    nine = [pyr[0]] * 9
+    nine_tpl = tpl._replace(**{f: getattr(tpl, f)[:1] * 9 for f in tpl._fields})
+    return {
+        "nine levels": dict(base, template=nine_tpl, target_pyr=nine,
+                            K_pyr=K[:1].expand(9, 4).contiguous()),
+        "over-cap template": dict(base, template=over),
+        "non-contiguous R0": dict(base, R0=R0.t()),
+        "float64 t0": dict(base, t0=t0.double()),
+        "int32 valid": dict(base, template=tpl._replace(valid=[v.int() for v in tpl.valid])),
+        "non-contiguous level": dict(base, target_pyr=[p.transpose(0, 1) for p in pyr]),
+        "coarsest past the pyramid": dict(base, coarsest_lvl=3),
+        "empty abort thresholds": dict(base, min_res_for_abort=torch.zeros(0)),
+    }
+
+
+@pytest.mark.parametrize("what", ["nine levels", "over-cap template", "non-contiguous R0",
+                                  "float64 t0", "int32 valid", "non-contiguous level",
+                                  "coarsest past the pyramid", "empty abort thresholds"])
+def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(case, what, monkeypatch):
+    """Refused before the library is built or loaded."""
+    def no_library():
+        raise AssertionError("the library was asked for")
+    monkeypatch.setattr(ttrk, "_kernels", no_library)
+    launches = ttrk.kernel_launches
+    with pytest.raises(ValueError):
+        ttrk.track_coarse_kernel(**_refusals(case)[what])
+    assert ttrk.kernel_launches == launches
+
+
+def test_scoring_wrapper_refuses_unbatched_hypotheses(case, monkeypatch):
+    monkeypatch.setattr(ttrk, "_kernels", lambda: None)
+    tpl, pyr, K = case["template"], case["target_pyr"], case["K_pyr"]
+    for R_b, t_b in ((case["R_b"][0], case["t_b"][0]),
+                     (case["R_b"].transpose(1, 2), case["t_b"])):
+        with pytest.raises(ValueError):
+            ttrk.score_hypotheses_kernel(tpl, pyr[2], K[2], 2, R_b, t_b, case["aff0"],
+                                         case["exp_ref"], case["exp_new"], case["aff_ref"], KCFG)
+
+
+# start, config and abort thresholds of each path the coarse-to-fine kernel takes
+KERNEL_PATHS = {
+    "identity start": (0, KCFG, None),
+    "near start": (3, KCFG, None),
+    "cutoff doubled, level repeated": (0, dataclasses.replace(KCFG, coarse_cutoff_th=6.0), None),
+    "abort at the coarsest level": (0, KCFG, [0.1, 0.1, 0.5]),
+    "abort at level 0": (0, KCFG, [0.2, 10.0]),
+}
+
+
+@pytest.mark.parametrize("path", list(KERNEL_PATHS))
+def test_kernel_host_build_matches_plain(case, host_kernels, path):
+    """The coarse-to-fine kernel, each block with one thread on the host,
+    against track_coarse_plain: the same decisions (iterations and cutoff
+    doublings per level, abort, ok), and the same answer to f32 summation
+    order. Then against the JAX package's track_coarse on the same inputs,
+    at the tolerances of test_track_coarse_multi_matches."""
+    k, cfg, min_res = KERNEL_PATHS[path]
+    mr = None if min_res is None else torch.tensor(min_res)
+    tpl, pyr, K = case["template"], case["target_pyr"], case["K_pyr"]
+    p = ttrk.track_coarse_plain(tpl, pyr, K, *_start(case, k), cfg, min_res_for_abort=mr)
+    q = ttrk.track_coarse_kernel(tpl, pyr, K, *_start(case, k), cfg, min_res_for_abort=mr)
+    assert torch.equal(p.lm, q.lm) and bool(p.ok) == bool(q.ok)
+    if path.startswith("cutoff"):
+        assert int(q.lm[1].sum()) > 0 and int(q.lm[0, 2]) > cfg.tracker_iters_per_level[2]
+    if path.startswith("abort"):
+        assert not bool(q.ok)
+    torch.testing.assert_close(q.R, p.R, rtol=0, atol=1e-5)
+    torch.testing.assert_close(q.t, p.t, rtol=0, atol=1e-5)
+    torch.testing.assert_close(q.aff, p.aff, rtol=0, atol=1e-4)
+    torch.testing.assert_close(q.residuals, p.residuals, rtol=1e-4, atol=1e-6, equal_nan=True)
+    torch.testing.assert_close(q.flow, p.flow, rtol=1e-3, atol=1e-5)
+    # and the same bits on a second call
+    r = ttrk.track_coarse_kernel(tpl, pyr, K, *_start(case, k), cfg, min_res_for_abort=mr)
+    for a, b in zip(q, r):
+        assert torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                           b.view(torch.int32) if b.is_floating_point() else b)
+    # the JAX package: its thresholds indexed past their end clamp, as the
+    # port's do, so the short list is padded with its last entry
+    L = len(pyr)
+    jmr = np.full(L, np.inf, np.float32) if min_res is None else np.pad(
+        np.float32(min_res), (0, L - len(min_res)), mode="edge")
+    jtpl = jtrk.Template(*([_jax(x) for x in field] for field in tpl))
+    j = _jax_track_coarse(cfg.coarse_cutoff_th)(
+        jtpl, [_jax(x) for x in pyr], _jax(K), *(_jax(x) for x in _start(case, k)),
+        min_res_for_abort=jnp.asarray(jmr))
+    assert bool(q.ok) == bool(j.ok)
+    np.testing.assert_allclose(q.R.numpy(), np.asarray(j.R), atol=1e-4)
+    np.testing.assert_allclose(q.t.numpy(), np.asarray(j.t), atol=1e-4)
+    np.testing.assert_allclose(q.aff.numpy(), np.asarray(j.aff), atol=1e-3)
+    np.testing.assert_allclose(q.residuals.numpy(), np.asarray(j.residuals), rtol=1e-3)
+    np.testing.assert_allclose(q.flow.numpy(), np.asarray(j.flow), rtol=1e-3, atol=1e-4)
+
+
+def test_scoring_host_build_matches_plain(case, host_kernels):
+    """The scoring kernel's host build against score_hypotheses_plain, then
+    against the JAX package's score_hypotheses on the same inputs (at the
+    tolerances of test_score_hypotheses_match)."""
+    tpl, pyr, K = case["template"], case["target_pyr"], case["K_pyr"]
+    args = (tpl, pyr[2], K[2], 2, case["R_b"], case["t_b"], case["aff0"], case["exp_ref"],
+            case["exp_new"], case["aff_ref"], KCFG)
+    sp = ttrk.score_hypotheses_plain(*args)
+    sk = ttrk.score_hypotheses_kernel(*args)
+    f = torch.isfinite(sp)
+    assert torch.equal(f, torch.isfinite(sk)) and not bool(f[-4:].any()) and int(f.sum()) == 28
+    torch.testing.assert_close(sk[f], sp[f], rtol=1e-4, atol=0)
+    assert int(sk.argmin()) == int(sp.argmin())
+    js = np.asarray(jtrk.score_hypotheses(
+        jtrk.Template(*([_jax(x) for x in field] for field in tpl)), _jax(pyr[2]), _jax(K[2]), 2,
+        *(_jax(case[n]) for n in ("R_b", "t_b", "aff0", "exp_ref", "exp_new", "aff_ref")),
+        JConfig(pyr_levels=KCFG.pyr_levels, tracker_iters_per_level=KCFG.tracker_iters_per_level)))
+    sk = sk.numpy()
+    np.testing.assert_array_equal(np.isfinite(sk), np.isfinite(js))
+    np.testing.assert_allclose(sk[np.isfinite(js)], js[np.isfinite(js)], rtol=1e-3)
+    assert int(np.argmin(sk)) == int(np.argmin(js))
