@@ -1,259 +1,158 @@
-"""What decides `correct`: the timed path's own answers, captured in the
-window, held against the plain reference (reference/) once it has closed.
+"""What decides `correct`: the program's own answers, captured while it
+runs, held against the plain reference (reference/) once the window has
+closed.
 
-Capture. Every run (traced or not) wraps the program's coarse-to-fine
-tracker, `ops.tracker.track_coarse`, for the window: both entries reach it
-(the pipelined one through track_step and track_coarse_multi, the
-sequential one through track_coarse_multi and its serial fallback). The
-wrapper keeps references, never copies, to the arguments and results of a
-sample of calls drawn from the seed: the template the frame was tracked
-against (every level), the frame's pyramid (the CUDA kernel's output), the
-start pose and affine brightness the program chose, the exposures, the
-abort thresholds, how many calibration refits had landed, and the pose
-refToNew and affine brightness it returned. The harness keeps the program's
-rectified frames of those calls.
-
-Judgement, per captured call, after the window:
-- rectify_gap: the program's rectified frame against the reference's
-  rectification of the same raw frame (grey levels, the largest pixel);
-- pyramid_gap: the program's pyramid [I, dx, dy] against the reference
-  pyramid of the reference's rectified frame (through the reference's own
-  calibrated correction where one is in force; grey levels);
-- track_px_gap: the reference runs the stated coarse-to-fine alignment
-  (reference/tracker.py) in float64 from the program's start, on the
-  reference pyramid; the largest shift, in level-0 pixels, of a template
-  point between the program's answer and the reference's;
-- track_aff_gap: the largest difference of the two brightness maps over
-  intensities 0..255 (grey levels).
-- calib_gap (configurations with the online calibration): every refit of
-  the run, from the first, is captured: the frames of the ring, their
-  poses relative to the template's keyframe and the template's level-0
-  points the program sampled them at, the program's previous fit, and the
-  correction the program put in force after the refit. The reference
-  redoes each refit (reference/photo_calib.py) from its own rectification
-  of the raw frames and the handed-over exposures, starting from the
-  program's previous fit as the program does (the first from the stated
-  initial values), and blends it into its own previous correction; the
-  reading is the largest difference, over the refits, intensities 0..255
-  and a grid of pixels, of the corrected intensity Binv(I) / V(x) (grey
-  levels). The pyramid's reference above applies the reference's own
-  correction in force at the frame.
-Each reading is the largest over the captured calls. The control puts the
-reference, computed in bfloat16, in the program's place: its rectified
-frame, its refits, its pyramid, and its alignment from the same start.
+Each judged part is a file, judges/<part>.py (registry.judge_module), and
+the configuration's `limits` choose the parts: a judge runs when its
+NUMBERS name a key there, and each key has to be read by exactly one judge,
+or the run fails before its set-up. A judge module declares:
+- NUMBERS: the `limits` keys it reads, each a gap (lower is better);
+- MINIMUMS: {count: floor}, the counts its readings need to stand;
+- AFTER: the judges whose results it reads, where they run;
+- SCOPE: "run" (installed once the system is built, before the first
+  bootstrap frame) or "window" (installed when the timed window opens);
+- Capturer(ctx): install() and remove(), and `captured`, what it kept.
+  remove() always runs, also on a failed run. A capture may be taken on
+  any of the program's threads;
+- judge(captured, inputs, state, control) -> Judged, after the window:
+  `state` maps each judge of AFTER that ran to what it left.
+`verdict` holds every number of every judge that ran to its limit, and
+every count to its floor.
 """
 from __future__ import annotations
 
 import dataclasses
-import inspect
 import math
-from typing import Dict, List, Optional
+import os
+from typing import Callable, Dict, List, Optional
 
-import numpy as np
 import torch
 
-from slambench.reference import image as RI
-from slambench.reference import photo_calib as RP
-from slambench.reference import tracker as RT
-
-NUMBERS = ("rectify_gap", "pyramid_gap", "track_px_gap", "track_aff_gap", "calib_gap")
-CALIB_GRID = 4           # calib_gap reads every CALIB_GRID-th pixel in each direction
-CAPTURE_EVERY = 8        # about one call in CAPTURE_EVERY is captured
-MAX_CAPTURES = 24
-MIN_JUDGED = 3           # fewer judged calls: the answers never came
-MIN_FITS = 3             # fewer refits in a calibrating run: the fits never came
+from slambench import registry
 
 
 @dataclasses.dataclass
-class Capture:
-    frame: Optional[int]        # the harness's frame index (sequential entry)
-    candidates: list            # [(frame index, program's rectified host frame)]
-    pyr: list                   # the program's pyramid, (H_l, W_l, 3) per level
-    tpl: list                   # template per level: (u, v, idepth, color, valid)
-    start: tuple                # (R0, t0, aff0) the program started from
-    exp_ref: torch.Tensor
-    exp_new: torch.Tensor
-    aff_ref: torch.Tensor
-    coarsest: int
-    min_res: Optional[torch.Tensor]
-    R: torch.Tensor             # the program's answer
-    t: torch.Tensor
-    aff: torch.Tensor
-    ok: torch.Tensor
-    n_fits: int                 # calibration refits landed before the call
+class Context:
+    """What a capturer is built from."""
+    seed: int
+    system: object
+    sequential: bool            # the configuration's entry is process_frame
+    rate: float                 # frames per second of the stream
+    recent: list                # the last frames handed over: [(index, rectified host frame)]
 
 
 @dataclasses.dataclass
-class Fit:
-    frames: List[int]           # the ring's frame indices, oldest first
-    R: np.ndarray               # (F, 3, 3), (F, 3): each ring frame from the keyframe
-    t: np.ndarray
-    tpl: tuple                  # the template's level 0: (u, v, idepth, valid)
-    before: Optional[tuple]     # the program's previous fit (None before the first)
-    luts: tuple                 # the correction in force after it: (Binv, 1/V, B')
-    n: int                      # the program's count of refits after it
+class Inputs:
+    """What every judge is given after the window."""
+    raw_of: Callable            # frame index -> raw uint8 host frame
+    exp_of: Callable            # frame index -> exposure handed over with it
+    lens: object                # reference/lens.py's parse of the camera.txt
+    cfg: dict
+    device: torch.device
 
 
-class Capturer:
-    """Wraps ops.tracker.track_coarse for the window and, with the online
-    calibration, the system's refit for the whole run (see the module's
-    docstring). The harness keeps `recent`, the last frames it handed over
-    as [(index, rectified host frame)], newest last; a sequential entry
-    tracks the newest one only."""
-
-    def __init__(self, seed: int, system, sequential: bool, rate_hz: float):
-        self.offset = seed % CAPTURE_EVERY
-        self.calls = 0
-        self.system = system
-        self.rate = rate_hz
-        self.recent: list = []
-        self.sequential = sequential
-        self.captures: List[Capture] = []
-        self.fits: List[Fit] = []
-        self._saved = None
-
-    def _take(self) -> bool:
-        k = self.calls
-        self.calls += 1
-        return k % CAPTURE_EVERY == self.offset and len(self.captures) < MAX_CAPTURES
-
-    def _wrap(self, fn):
-        sig = inspect.signature(fn)
-
-        def captured(*args, **kwargs):
-            out = fn(*args, **kwargs)
-            if self._take():
-                self.captures.append(self._record(sig.bind(*args, **kwargs), out))
-            return out
-        return captured
-
-    def _record(self, bound, res) -> Capture:
-        a = bound.arguments
-        tpl = a["template"]
-        levels = [(tpl.u[lv], tpl.v[lv], tpl.idepth[lv], tpl.color[lv], tpl.valid[lv])
-                  for lv in range(len(tpl.u))]
-        pyr = list(a["target_pyr"])
-        coarsest = a.get("coarsest_lvl")
-        return Capture(
-            self.recent[-1][0] if self.sequential else None, list(self.recent), pyr, levels,
-            (a["R0"], a["t0"], a["aff0"]), a["exp_ref"], a["exp_new"], a["aff_ref"],
-            len(pyr) - 1 if coarsest is None else int(coarsest), a.get("min_res_for_abort"),
-            res.R, res.t, res.aff, res.ok, self.system.n_photo_fits)
-
-    def install_fits(self):
-        """Capture every calibration refit of the system from now on: what
-        the refit reads (the ring, the poses, the template) just before it
-        runs, and the correction in force once it has landed."""
-        slam = self.system
-        step = slam._photo_calib_step
-
-        def captured():
-            if slam.template is None:
-                return step()
-            with slam._shell_lock:
-                ids = [sid for sid, _ in slam._pc_ring]
-                ref = slam.shells[slam.ref_shell_id].cam_to_world
-                rel = np.stack([np.linalg.inv(slam.shells[sid].cam_to_world) @ ref for sid in ids])
-                frames = [int(round(slam.shells[sid].timestamp * self.rate)) for sid in ids]
-            tpl = slam.template
-            lv0 = (tpl.u[0], tpl.v[0], tpl.idepth[0], tpl.valid[0])
-            before = slam._pc_params
-            landed = step()
-            if landed:
-                self.fits.append(Fit(frames, rel[:, :3, :3], rel[:, :3, 3], lv0, before,
-                                     slam._pc_luts, slam.n_photo_fits))
-            return landed
-        slam._photo_calib_step = captured
-
-    def remove_fits(self):
-        self.system.__dict__.pop("_photo_calib_step", None)
-
-    def install(self, tracker_module):
-        self._saved = tracker_module.track_coarse
-        tracker_module.track_coarse = self._wrap(self._saved)
-
-    def remove(self, tracker_module):
-        if self._saved is not None:
-            tracker_module.track_coarse = self._saved
-            self._saved = None
+@dataclasses.dataclass
+class Judged:
+    readings: Dict[str, float]  # each of the judge's NUMBERS
+    counts: Dict[str, int]      # each of its MINIMUMS, and any others it reports
+    rows: List[dict]            # one line each on standard error, as [judge] rows
+    control: Optional[Dict[str, float]] = None  # NUMBERS with the control in the program's place
+    left: object = None         # what judges that name this one in AFTER read
 
 
-def _frame_of(cap: Capture):
-    """(frame index, program's rectified frame) of a capture. A pipelined
-    call may track an older staged frame (a retry): its pyramid's level 0 is
-    matched against the frames the harness handed over last."""
-    if cap.frame is not None:
-        return cap.candidates[-1]
-    img = cap.pyr[0][..., 0].detach().cpu().numpy()
-    for idx, rect in reversed(cap.candidates):
-        if rect.shape == img.shape and np.array_equal(rect, img):
-            return idx, rect
-    return None
+class BadLimits(ValueError):
+    """A `limits` key that no judge, or more than one, reads."""
 
 
-def judge(captures: List[Capture], fits: List[Fit], raw_of, exp_of, cam, cfg: dict, device,
-          control: bool = False) -> Dict[str, dict]:
-    """Readings of NUMBERS over the captures: {"program": {...}, "n": {...}}
-    and, with `control`, {"control": {...}}. `raw_of(frame index)` gives
-    the raw uint8 host frame, `exp_of(frame index)` the exposure handed
-    over with it."""
-    tracker = dict(cfg["tracker"], iters_per_level=cfg["tracker"]["tracker_iters_per_level"])
-    levels = int(cfg["capacities"]["pyr_levels"])
-    prog = {k: 0.0 for k in NUMBERS}
-    ctrl = {k: 0.0 for k in NUMBERS}
-    n = dict(captured=len(captures), unmatched=0, rejected=0, judged=0, fits=len(fits))
-    calls = []
-    f64 = torch.float64
-    chain = _refits(fits, raw_of, exp_of, cam, cfg, device, f64)
-    c_chain = _refits(fits, raw_of, exp_of, cam, cfg, device, torch.bfloat16) if control else None
-    for k, fit in enumerate(fits):
-        prog["calib_gap"] = max(prog["calib_gap"], math.inf if fit.n != k + 1 else
-                                _correction_gap(fit.luts, chain[k]))
-        if control:
-            ctrl["calib_gap"] = max(ctrl["calib_gap"], _correction_gap(c_chain[k], chain[k]))
-    for cap in captures:
-        got = _frame_of(cap)
-        if got is None:
-            n["unmatched"] += 1
-            continue
-        idx, rect = got
-        raw = raw_of(idx).to(device)
-        ref = RI.rectify(raw, cam, f64)
-        prog["rectify_gap"] = max(prog["rectify_gap"],
-                                  _gap(torch.as_tensor(rect, device=device), ref))
-        if cap.n_fits > len(fits):
-            n["unmatched"] += 1     # a correction the captured refits do not explain
-            continue
-        ref_pyr = RI.pyramid(_calibrated(ref, _after(chain, cap.n_fits)), levels)
-        prog["pyramid_gap"] = max(prog["pyramid_gap"], _pyr_gap(cap.pyr, ref_pyr))
-        if control:
-            c_rect = RI.rectify(raw, cam, torch.bfloat16)
-            ctrl["rectify_gap"] = max(ctrl["rectify_gap"], _gap(c_rect, ref))
-            c_pyr = RI.pyramid(_calibrated(c_rect, _after(c_chain, cap.n_fits)), levels)
-            ctrl["pyramid_gap"] = max(ctrl["pyramid_gap"], _pyr_gap(c_pyr, ref_pyr))
-        if not bool(cap.ok):
-            n["rejected"] += 1      # the program discarded this answer itself
-            continue
-        n["judged"] += 1
-        K0 = lens_K(cam)
-        args = (K0, cap.exp_ref, cap.exp_new, cap.aff_ref, *cap.start, tracker, cap.coarsest,
-                None if cap.min_res is None else cap.min_res.tolist())
-        R, t, aff, _ = RT.track_coarse(cap.tpl, ref_pyr, *args, dtype=f64)
-        px = RT.pose_gap_px(cap.tpl[0], K0, cap.R, cap.t, R, t)
-        af = RT.affine_gap(cap.exp_ref, cap.exp_new, cap.aff_ref, cap.aff, aff)
-        prog["track_px_gap"] = max(prog["track_px_gap"], px)
-        prog["track_aff_gap"] = max(prog["track_aff_gap"], af)
-        calls.append(dict(frame=idx, px=px, aff=af))
-        if control:
-            cR, ct, caff, _ = RT.track_coarse(cap.tpl, c_pyr, *args, dtype=torch.bfloat16)
-            ctrl["track_px_gap"] = max(ctrl["track_px_gap"],
-                                       RT.pose_gap_px(cap.tpl[0], K0, cR, ct, R, t))
-            ctrl["track_aff_gap"] = max(ctrl["track_aff_gap"], RT.affine_gap(
-                cap.exp_ref, cap.exp_new, cap.aff_ref, caff, aff))
-    out = {"program": prog, "n": n, "calls": calls}
-    if control:
-        out["control"] = ctrl
-    return out
+def select(limits: dict, root: str) -> Dict[str, object]:
+    """The judges whose NUMBERS read the `limits` keys, by name, each after
+    the judges named in its AFTER."""
+    where = os.path.join(root, "judges")
+    names = sorted(f[:-3] for f in os.listdir(where) if f.endswith(".py"))
+    mods = {n: registry.judge_module(n, root) for n in names}
+    readers = {k: [n for n in names if k in mods[n].NUMBERS] for k in limits}
+    for k, who in readers.items():
+        if len(who) != 1:
+            raise BadLimits(f"limits key {k!r} is read by {len(who)} judges {who} "
+                            f"in {where}; exactly one has to read it")
+    chosen = {who[0] for who in readers.values()}
+    checks = list(limits) + [c for n in sorted(chosen) for c in mods[n].MINIMUMS]
+    if len(set(checks)) != len(checks):
+        raise BadLimits(f"the judges {sorted(chosen)} name a check twice: {checks}")
+    order: List[str] = []
+
+    def visit(n, path):
+        if n in order:
+            return
+        if n in path:
+            raise BadLimits(f"judges wait on each other: {path + [n]}")
+        for a in mods[n].AFTER:
+            if a in chosen:
+                visit(a, path + [n])
+        order.append(n)
+    for n in sorted(chosen):
+        visit(n, [])
+    return {n: mods[n] for n in order}
+
+
+class Panel:
+    """The judges a configuration's limits select, their capturers and
+    their results."""
+
+    def __init__(self, limits: dict, root: str):
+        self.limits = limits
+        self.judges = select(limits, root)
+        self.capturers: Dict[str, object] = {}
+
+    def install(self, scope: str, ctx: Context):
+        for name, mod in self.judges.items():
+            if mod.SCOPE == scope:
+                self.capturers[name] = cap = mod.Capturer(ctx)
+                cap.install()
+
+    def remove(self):
+        for cap in reversed(list(self.capturers.values())):
+            cap.remove()
+
+    def judge(self, inputs: Inputs, control: bool = False) -> Dict[str, Judged]:
+        """Each judge's result, in AFTER order."""
+        out: Dict[str, Judged] = {}
+        for name, mod in self.judges.items():
+            state = {a: out[a].left for a in mod.AFTER if a in out}
+            out[name] = mod.judge(self.capturers[name].captured, inputs, state, control)
+        return out
+
+    def report_order(self) -> List[str]:
+        """The judges in the order their first key comes in `limits`."""
+        first = {}
+        for i, k in enumerate(self.limits):
+            for name, mod in self.judges.items():
+                if k in mod.NUMBERS:
+                    first.setdefault(name, i)
+        return sorted(self.judges, key=first.__getitem__)
+
+    def verdict(self, judged: Dict[str, Judged]):
+        """(correct, checks): every number the configuration limits within
+        its limit, and every judge's counts at their floors. `checks` maps
+        each name to its reading and limit: the numbers in the order of
+        `limits`, then the counts, judge by judge."""
+        readings = {k: v for j in judged.values() for k, v in j.readings.items()}
+        checks = {k: {"value": readings.get(k, math.inf), "limit": lim}
+                  for k, lim in self.limits.items()}
+        ok = all(c["value"] <= c["limit"] for c in checks.values())
+        for name in self.report_order():
+            for c, floor in self.judges[name].MINIMUMS.items():
+                got = judged[name].counts.get(c, 0)
+                checks[c] = {"value": got, "limit": floor}
+                ok = ok and got >= floor
+        return ok, checks
+
+    def merged(self, judged: Dict[str, Judged], field: str) -> dict:
+        """One field of every judge's result, merged in report order."""
+        out = {}
+        for name in self.report_order():
+            out.update(getattr(judged[name], field) or {})
+        return out
 
 
 def lens_K(cam) -> list:
@@ -262,74 +161,8 @@ def lens_K(cam) -> list:
     return [float(K[0, 0]), float(K[1, 1]), float(K[0, 2]), float(K[1, 2])]
 
 
-def _calibrated(img, luts):
-    if luts is None:
-        return img
-    inv_resp, inv_vig = luts[:2]
-    return RI.photometric_correct(img, inv_resp, inv_vig)
-
-
-def _refits(fits: List[Fit], raw_of, exp_of, cam, cfg: dict, device, dtype) -> list:
-    """The reference's redo of each captured refit, in `dtype`, from its own
-    rectification of each ring frame and from the program's previous fit,
-    each blended into the reference's own previous correction: the
-    correction in force after each."""
-    W, H = cam.out_size
-    out = []
-    K = lens_K(cam)
-    for fit in fits:
-        frames = torch.stack([RI.rectify(raw_of(k).to(device), cam, dtype) for k in fit.frames])
-        obs, r2, mask = RP.sample(fit.tpl, K, torch.as_tensor(fit.R, device=device),
-                                  torch.as_tensor(fit.t, device=device), frames)
-        exp = np.array([exp_of(k) for k in fit.frames], np.float64)
-        known = bool(np.any(np.abs(exp - 1.0) > 1e-9))
-        out.append(RP.refit(fit.before, out[-1] if out else None, obs, r2, mask,
-                            torch.as_tensor(exp, dtype=dtype, device=device) if known else None,
-                            cfg["photo_calib"], H, W))
-    return out
-
-
-def _after(corrections: list, n_fits: int):
-    """The reference's correction in force once `n_fits` refits have landed
-    (None before the first; None where a refit was not captured)."""
-    if n_fits == 0:
-        return None
-    return corrections[n_fits - 1] if n_fits <= len(corrections) else None
-
-
-def _correction_gap(a, b) -> float:
-    """Largest difference of Binv(I) / V(x) between two corrections over
-    intensities 0..255 and every CALIB_GRID-th pixel (grey levels)."""
-    if a is None or b is None:
-        return math.inf
-    g = CALIB_GRID
-    va = a[1][::g, ::g].reshape(-1).to(torch.float64)
-    vb = b[1][::g, ::g].reshape(-1).to(va.device, torch.float64)
-    ba = a[0].to(torch.float64)
-    bb = b[0].to(va.device, torch.float64)
-    return _gap(ba[:, None] * va[None, :], bb[:, None] * vb[None, :])
-
-
-def _gap(a: torch.Tensor, b: torch.Tensor) -> float:
+def gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest absolute difference, float64; inf where it is not finite."""
     d = (a.to(torch.float64) - b.to(torch.float64)).abs().max()
     return float(d) if bool(torch.isfinite(d)) else math.inf
 
-
-def _pyr_gap(pa, pb) -> float:
-    if len(pa) != len(pb):
-        return math.inf
-    return max(_gap(a, b) if a.shape == b.shape else math.inf for a, b in zip(pa, pb))
-
-
-def verdict(readings: Dict[str, float], n: dict, limits: Dict[str, float]):
-    """(correct, checks): every number the configuration limits within its
-    limit, and enough calls (and, with calib_gap, refits) judged. `checks`
-    maps each name to its reading and limit, in order."""
-    held = [k for k in NUMBERS if k in limits]
-    checks = {k: {"value": readings[k], "limit": limits[k]} for k in held}
-    checks["judged_calls"] = {"value": n["judged"], "limit": MIN_JUDGED}
-    ok = all(readings[k] <= limits[k] for k in held) and n["judged"] >= MIN_JUDGED
-    if "calib_gap" in limits:
-        checks["judged_fits"] = {"value": n["fits"], "limit": MIN_FITS}
-        ok = ok and n["fits"] >= MIN_FITS
-    return ok, checks

@@ -5,7 +5,6 @@ from slambench import program
 
 UNIT = "s"
 SOURCE = {"program": {"spans": ["init"]}}
-program.request()
 
 
 def read(run):

@@ -5,7 +5,6 @@ from slambench import program
 
 UNIT = "ms"
 SOURCE = {"program": {"spans": ["frame"]}}
-program.request()
 
 
 def read(run):

@@ -6,7 +6,6 @@ from slambench import program
 
 UNIT = "syncs/frame"
 SOURCE = {"program": {"spans": ["frame"], "counters": ["host_sync"]}}
-program.request()
 
 
 def read(run):

@@ -4,7 +4,6 @@ from slambench import program
 
 UNIT = "iters/frame"
 SOURCE = {"program": {"spans": ["frame", "track"], "counters": ["lm_iter"]}}
-program.request()
 
 
 def read(run):

@@ -5,7 +5,6 @@ from slambench import program
 
 UNIT = "ms"
 SOURCE = {"program": {"spans": ["track"]}}
-program.request()
 
 
 def read(run):

@@ -2,12 +2,11 @@
 for the per-layer metrics whose SOURCE is {"program": {"spans": [...],
 "counters": [...]}}.
 
-Such a metric module calls `request()` when it is loaded. run.py loads a
-cell's metric modules only with --trace 1, and before it builds the
-system, so the tracer records the bootstrap, the warm-up and the window;
-an untraced run loads none and records nothing. The tracer goes off when
-the system closes (run.py closes it after the window, and on a failed
-run) or at the first reading, whichever comes first.
+With --trace 1 and such a metric in the cell, run.py calls `start()` just
+before it builds the system, so the tracer records the bootstrap, the
+warm-up and the window, and `stop()` in a `finally` when the window closes,
+and again on its way out, so a run that fails, also before its system
+exists, leaves the tracer off. An untraced run records nothing.
 
 Phases, on the clock the harness stamps its spans on (perf_counter):
 - the window: spans that start at or after the window's first frame (the
@@ -18,12 +17,11 @@ Phases, on the clock the harness stamps its spans on (perf_counter):
 A counter's window delta is the sum of the counts each window `frame` span
 (a root span of the thread that calls the entry) made while it was open.
 
-Without the tracer (a checkout older than it) `request()` does nothing
-and every reading is None.
+Without the tracer (a checkout older than it) `start()` and `stop()` do
+nothing and every reading is None.
 """
 from __future__ import annotations
 
-import functools
 import importlib
 import math
 import sys
@@ -39,27 +37,18 @@ def _tracer():
         return None
 
 
-def request() -> None:
-    """Turn the program's tracer on with an empty record, until the
-    system closes."""
+def start() -> None:
+    """Turn the program's tracer on with an empty record."""
     tr = _tracer()
-    if tr is None:
-        return
-    tr.enable()
-    from hslam_tpu_torch.models.system import SLAMSystem
-    orig = SLAMSystem.__dict__["close"]
-    if getattr(orig, "turns_tracer_off", False):
-        return
+    if tr is not None:
+        tr.enable()
 
-    @functools.wraps(orig)
-    def close(self):
-        try:
-            return orig(self)
-        finally:
-            SLAMSystem.close = orig
-            tr.disable()
-    close.turns_tracer_off = True
-    SLAMSystem.close = close
+
+def stop() -> None:
+    """Turn the program's tracer off; its record stays for `reading`."""
+    tr = _tracer()
+    if tr is not None:
+        tr.disable()
 
 
 def self_ns(parent, children) -> int:
@@ -132,14 +121,13 @@ class Reading:
 
 
 def reading(run) -> Optional[Reading]:
-    """The run's Reading (made once, on the first call, which turns the
-    tracer off), or None without a tracer or a window."""
+    """The run's Reading (made once, on the first call), or None without a
+    tracer or a window."""
     if hasattr(run, "_program_reading"):
         return run._program_reading
     tr, got = _tracer(), None
     rect, entry = run.spans.of("rectify"), run.spans.of("entry")
     if tr is not None and rect and entry:
-        tr.disable()
         got = Reading(tr.snapshot(), min(s.t0 for s in rect),
                       min(max(s.t1 for s in entry), run.profiled_from), entry[0].thread)
         for name, secs in named_gaps(run, got):

@@ -1,13 +1,15 @@
 """Find the pieces of a run by name: a cell in BENCHMARK.json, its
 configuration in configs/<config>.json, its traffic mix in
-traffic/<traffic>.json and each per-layer metric's reader in
-metrics/<metric>.py. Adding a configuration, a mix, a cell or a metric is
-adding files and entries; nothing here names one."""
+traffic/<traffic>.json, each per-layer metric's reader in
+metrics/<metric>.py and each judged part's check in judges/<part>.py.
+Adding a configuration, a mix, a cell, a metric or a judge is adding files
+and entries; nothing here names one."""
 from __future__ import annotations
 
 import importlib.util
 import json
 import os
+import sys
 from types import ModuleType
 from typing import List
 
@@ -41,15 +43,30 @@ def traffic(name: str, root: str = HERE) -> dict:
     return _json(root, "traffic", name)
 
 
-def metric_module(name: str, root: str = HERE) -> ModuleType:
-    """metrics/<name>.py, loaded from its path (names may hold dots)."""
-    path = os.path.join(root, "metrics", name + ".py")
-    spec = importlib.util.spec_from_file_location(f"slambench_metric_{name}", path)
+def _module(kind: str, name: str, root: str, attrs) -> ModuleType:
+    """<kind>/<name>.py, loaded from its path (names may hold dots) and
+    registered in sys.modules under its own name, as dataclasses need."""
+    path = os.path.join(root, kind, name + ".py")
+    spec = importlib.util.spec_from_file_location(f"slambench_{kind}_{name}", path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
     spec.loader.exec_module(mod)
-    for attr in ("UNIT", "SOURCE", "read"):
+    for attr in attrs:
         if not hasattr(mod, attr):
-            raise AttributeError(f"metric {name}: {path} defines no {attr}")
+            raise AttributeError(f"{kind} {name}: {path} defines no {attr}")
+    return mod
+
+
+def metric_module(name: str, root: str = HERE) -> ModuleType:
+    return _module("metrics", name, root, ("UNIT", "SOURCE", "read"))
+
+
+def judge_module(name: str, root: str = HERE) -> ModuleType:
+    """judges/<name>.py: a judged part's check (judge.py says what it declares)."""
+    mod = _module("judges", name, root,
+                  ("NUMBERS", "MINIMUMS", "AFTER", "SCOPE", "Capturer", "judge"))
+    if mod.SCOPE not in ("run", "window"):
+        raise ValueError(f"judge {name}: SCOPE {mod.SCOPE!r} is neither 'run' nor 'window'")
     return mod
 
 

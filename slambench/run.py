@@ -4,7 +4,8 @@
     python3 slambench/run.py --workload euroc_mh.laps --seed 7 --seconds 45 --trace 0
 
 A run, from the root of a checkout, on one card:
-1. Set-up (`setup_s`, from the process's start): import and init the card,
+1. Set-up (`setup_s`, from the process's start): keep to as many host
+   cores as the entry has threads (`pin_cores`), import and init the card,
    build the pyramid kernel (hslam_tpu_torch/_build/, inside the checkout),
    render the cell's raw sensor frames on the card from the seed and bring
    them to the host as uint8, build the system, and run the bootstrap and
@@ -20,14 +21,18 @@ A run, from the root of a checkout, on one card:
    the call that gave back its pose.
 3. After the window: the in-flight frames complete, the peak of device
    memory is read, the system is closed, and the captured answers are held
-   against the plain reference (judge.py). The last line of standard output
-   is the result; the numbers compared, each beside its limit, are the last
-   lines of standard error and the result's last key.
+   against the plain reference by the judges the configuration's `limits`
+   choose (judge.py, judges/*.py). The last line of standard output is the
+   result; the numbers compared, each beside its limit, are the last lines
+   of standard error and the result's last key.
 With --trace 1 the window also records the spans, counters and latency
 records the cell's per-layer metrics read (metrics/*.py), and profiles a
-stretch of its last frames; the result then holds those metrics.
+stretch of its last frames; the result then holds those metrics. Where one
+of them reads the program's own spans and counters, the program's tracer
+is on from just before the system is built until the window closes.
 
-A run without a CUDA card exits non-zero and prints no result.
+A run without a CUDA card, or whose `limits` name a key that no judge or
+more than one reads, exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -57,6 +62,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "hslam_tpu")
 PROFILE_LAST_S = 22.0
 PROFILE_FRAMES = 20
 MAX_INIT_FRAMES = 120    # a bootstrap that takes longer fails the run
+# the entry's busy threads: tracking; pipelined, also mapping and loop closure
+ENTRY_THREADS = {"sequential": 1, "pipelined": 3}
 
 
 def forbidden_modules(modules=None):
@@ -64,6 +71,19 @@ def forbidden_modules(modules=None):
     JAX package's (hslam_tpu_torch is the port, and allowed)."""
     mods = sys.modules if modules is None else modules
     return sorted({m for m in mods if m.split(".")[0] in FORBIDDEN})
+
+
+def pin_cores(entry: str) -> list:
+    """Keep the process, and every thread it starts later, on as many cores
+    as the entry has busy threads, the last ones it may use. The program's
+    host work is one busy Python thread an entry thread; left free to move
+    over cores that the machine's other load shares, it ran 4-8% slower
+    and spread wider. Call it before torch is imported."""
+    allowed = sorted(os.sched_getaffinity(0))
+    n = ENTRY_THREADS.get(entry, len(allowed))
+    if len(allowed) > n:
+        os.sched_setaffinity(0, allowed[-n:])
+    return sorted(os.sched_getaffinity(0))
 
 
 class RunFailed(RuntimeError):
@@ -86,13 +106,27 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, trace: bool,
     import numpy as np
     import torch
 
-    from slambench import judge, registry, scene, stats, tracing
+    from slambench import judge, program, registry, scene, stats, tracing
     from slambench.reference import lens as RL
 
     cfg = registry.config(cell["config"], root)
     traffic = registry.traffic(cell["traffic"], root)
+    try:
+        panel = judge.Panel(cfg["limits"], root)
+    except judge.BadLimits as e:
+        raise RunFailed(str(e)) from None
     metric_defs = registry.per_layer(bench, cell["name"]) if trace else []
     metrics = {m["name"]: registry.metric_module(m["name"], root) for m in metric_defs}
+    wraps, counters, deques, need_prof, need_program = {}, set(), set(), False, False
+    for mod in metrics.values():
+        src = mod.SOURCE
+        for name, targets in src.get("wrap", {}).items():
+            for t in targets:
+                wraps[t] = name
+        counters.update(src.get("counter", ()))
+        deques.update(src.get("deque", ()))
+        need_prof |= bool(src.get("profiler"))
+        need_program |= "program" in src
     dev = torch.device(device)
     on_card = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
@@ -101,7 +135,6 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, trace: bool,
     from hslam_tpu_torch.config import Config
     from hslam_tpu_torch.io.calib_io import parse_camera_txt
     from hslam_tpu_torch.models.system import SLAMSystem
-    from hslam_tpu_torch.ops import tracker as trk
     from hslam_tpu_torch.ops.undistort import remap_image
 
     if on_card:
@@ -141,18 +174,7 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, trace: bool,
     sysc = cfg["system"]
     config = Config(**cfg["capacities"], **{k: tuple(v) if isinstance(v, list) else v
                                             for k, v in cfg["tracker"].items()})
-    slam = SLAMSystem(K[0, 0], K[1, 1], K[0, 2], K[1, 2], W, H, config,
-                      enable_loop_closure=sysc["enable_loop_closure"],
-                      sequential=cfg["entry"] == "sequential",
-                      online_photo_calib=sysc["online_photo_calib"],
-                      photo_calib_every=sysc["photo_calib_every"], device=dev)
-    entry = (slam.process_frame if cfg["entry"] == "sequential"
-             else slam.process_frame_pipelined)
-
-    cap = judge.Capturer(seed, slam, cfg["entry"] == "sequential", rate)
-    if sysc["online_photo_calib"]:
-        cap.install_fits()
-    recent = cap.recent  # the last frames handed over: (index, rectified host frame)
+    recent = []          # the last frames handed over: (index, rectified host frame)
     handed = {}          # frame index -> hand-over time
     tracing_on = [False]
     spans = tracing.Spans()
@@ -176,7 +198,20 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, trace: bool,
             spans.add("entry", t_r, t_done)
         return out, t_done
 
+    slam = None
+    if need_program:
+        program.start()
     try:
+        slam = SLAMSystem(K[0, 0], K[1, 1], K[0, 2], K[1, 2], W, H, config,
+                          enable_loop_closure=sysc["enable_loop_closure"],
+                          sequential=cfg["entry"] == "sequential",
+                          online_photo_calib=sysc["online_photo_calib"],
+                          photo_calib_every=sysc["photo_calib_every"], device=dev)
+        entry = (slam.process_frame if cfg["entry"] == "sequential"
+                 else slam.process_frame_pipelined)
+        ctx = judge.Context(seed, slam, cfg["entry"] == "sequential", rate, recent)
+        panel.install("run", ctx)
+
         # set-up: the bootstrap, then the warm-up frames
         t_boot = time.perf_counter()
         j = 0
@@ -196,16 +231,7 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, trace: bool,
             f"(nvcc {_cuda.build_seconds.get('pyramid', 0.0):.3f} s)")
 
         # the window
-        cap.install(trk)
-        wraps, counters, deques, need_prof = {}, set(), set(), False
-        for mod in metrics.values():
-            src = mod.SOURCE
-            for name, targets in src.get("wrap", {}).items():
-                for t in targets:
-                    wraps[t] = name
-            counters.update(src.get("counter", ()))
-            deques.update(src.get("deque", ()))
-            need_prof |= bool(src.get("profiler"))
+        panel.install("window", ctx)
         prof = tracing.Profiler() if (need_prof and on_card) else None
         completed = []       # (frame index, hand-over, return)
         failed_ids = set()
@@ -239,6 +265,7 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, trace: bool,
                 if prof is not None:
                     prof.stop()
                 tracing_on[0] = False
+                program.stop()
             c1 = {c: getattr(slam, c) for c in counters}
         attempted = j - first
         in_window = [c for c in completed if c[0] >= first]
@@ -266,12 +293,13 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, trace: bool,
                 for s in slam.shells if s.pose_valid]
     except BaseException:
         # a failed run still stops the system's threads before it ends
-        with contextlib.suppress(Exception):
-            slam.close()
+        if slam is not None:
+            with contextlib.suppress(Exception):
+                slam.close()
         raise
     finally:
-        cap.remove(trk)
-        cap.remove_fits()
+        panel.remove()
+        program.stop()
     slam.close()
     del slam, entry
     if on_card:
@@ -281,17 +309,17 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, trace: bool,
     dtrace = prof.reduce(spans) if prof is not None else None
     lens = RL.parse_camera_txt(cfg["camera_txt"])
     t_judge = time.perf_counter()
-    readings = judge.judge(cap.captures, cap.fits, lambda k: stream.frames[slot(k)],
-                           lambda k: float(stream.exposures[slot(k)]), lens, cfg, dev,
-                           control=control)
-    limits = cfg["limits"]
-    correct, checks = judge.verdict(readings["program"], readings["n"], limits)
-    log(f"[info] {counts}; judged {readings['n']} in {time.perf_counter() - t_judge:.3f} s; "
-        f"ATE (not compared) {_ate(traj, stream, slot):.6f}")
-    for row in readings["calls"]:
-        log(f"[judge] {row}")
+    inputs = judge.Inputs(lambda k: stream.frames[slot(k)],
+                          lambda k: float(stream.exposures[slot(k)]), lens, cfg, dev)
+    judged = panel.judge(inputs, control)
+    correct, checks = panel.verdict(judged)
+    log(f"[info] {counts}; judged {panel.merged(judged, 'counts')} in "
+        f"{time.perf_counter() - t_judge:.3f} s; ATE (not compared) {_ate(traj, stream, slot):.6f}")
+    for name in panel.report_order():
+        for row in judged[name].rows:
+            log(f"[judge] {name} {row}")
     if control:
-        log(f"[control] {json.dumps(readings['control'])}")
+        log(f"[control] {json.dumps(panel.merged(judged, 'control'))}")
 
     result = {"correct": bool(correct), "attempted": attempted, "failed": failed}
     if trace:
@@ -317,7 +345,7 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, trace: bool,
         result["breakdown"] = {"device_ops": [list(x) for x in dtrace.top_ops],
                                "idle_gaps": [list(x) for x in dtrace.gaps]}
     if control:
-        result["control"] = readings["control"]
+        result["control"] = panel.merged(judged, "control")
     result["checks"] = checks
     return result
 
@@ -377,13 +405,14 @@ def main(argv=None) -> int:
     from slambench import registry
     bench = registry.load_benchmark()
     cell = registry.cell(bench, args.workload)
+    cores = pin_cores(registry.config(cell["config"])["entry"])
     import torch
     if not torch.cuda.is_available() or torch.cuda.device_count() < int(cell["chips"]):
         print(f"slambench: the cell needs {cell['chips']} CUDA device(s); "
               f"found {torch.cuda.device_count() if torch.cuda.is_available() else 0}",
               file=sys.stderr)
         return 3
-    print(f"[card] {_card_line()}", file=sys.stderr, flush=True)
+    print(f"[card] {_card_line()}; host cores {cores}", file=sys.stderr, flush=True)
     result = run_cell(bench, cell, args.seed, args.seconds, bool(args.trace),
                       control=bool(args.control))
     bad = forbidden_modules()

@@ -1,15 +1,15 @@
 """The metrics read from the program's own spans and counters
 (slambench/program.py) on the CPU at the small size (tiny.py): a traced
-run reports them and an untraced one does not; a run that fails leaves
-the program's tracer off; the idle gaps are named by the program's span
+run reports them and an untraced one does not; a run that fails, also
+before its system exists, leaves the program's tracer off; the idle gaps are named by the program's span
 path, on hand-made data."""
 from __future__ import annotations
 
 import pytest
 
-from slambench import judge, program, registry
+from slambench import program, registry
 from slambench import run as R
-from slambench.tests.tiny import tiny_root
+from slambench.tests.tiny import small_judges, tiny_root
 from slambench.tracing import DeviceTrace, Spans
 
 NEW = ("host_policy_ms", "track_span_ms", "lm_iters_per_frame", "host_syncs_per_frame",
@@ -18,8 +18,7 @@ NEW = ("host_policy_ms", "track_span_ms", "lm_iters_per_frame", "host_syncs_per_
 
 @pytest.fixture
 def small(tmp_path, monkeypatch):
-    monkeypatch.setattr(judge, "CAPTURE_EVERY", 2)
-    monkeypatch.setattr(judge, "MIN_FITS", 1)
+    small_judges(monkeypatch)
     return tiny_root(str(tmp_path))
 
 
@@ -45,13 +44,22 @@ def test_traced_run_reports_the_program_metrics_and_untraced_none(small):
     assert not set(NEW) & set(res["metrics"])
 
 
-def test_a_failed_run_leaves_the_tracer_off(small, monkeypatch):
+@pytest.mark.parametrize("when", ["bootstrap", "before_the_system"])
+def test_a_failed_run_leaves_the_tracer_off(small, monkeypatch, when):
     from hslam_tpu_torch.models.system import SLAMSystem
     from hslam_tpu_torch.utils import trace
     close = SLAMSystem.__dict__["close"]
-    monkeypatch.setattr(R, "MAX_INIT_FRAMES", 0)
-    with pytest.raises(R.RunFailed, match="not initialized"):
-        _run(small, True)
+    if when == "bootstrap":
+        monkeypatch.setattr(R, "MAX_INIT_FRAMES", 0)
+        with pytest.raises(R.RunFailed, match="not initialized"):
+            _run(small, True)
+    else:
+        def no_system(self, *a, **kw):
+            assert trace.enabled()      # the tracer is on before the system is built
+            raise RuntimeError("no system")
+        monkeypatch.setattr(SLAMSystem, "__init__", no_system)
+        with pytest.raises(RuntimeError, match="no system"):
+            _run(small, True)
     assert not trace.enabled()
     assert SLAMSystem.__dict__["close"] is close
 

@@ -1,7 +1,9 @@
 """Whole runs of the harness on the CPU at a small size (tiny.py), the look
 for a card skipped: the sound run is correct, its control and each fault
-a cell can have are not, a metric added as a file is reported, and a
-one-way path that runs out fails the run instead of wrapping. The faults:
+a cell can have are not, a metric and a judge added as files are reported
+and held, `limits` that no judge or two judges read fail the run before
+its set-up, and a one-way path that runs out fails the run instead of
+wrapping. The faults:
 the tracker or the calibration fit returning its state unchanged, its
 answer altered where it is produced, and half of each rectified frame left
 out; a one-chip cell has no exchange between chips to leave out."""
@@ -14,17 +16,16 @@ import os
 import pytest
 import torch
 
-from slambench import judge, registry
+from slambench import registry
 from slambench import run as R
-from slambench.tests.tiny import tiny_root
+from slambench.tests.tiny import small_judges, tiny_root
 
 SECONDS = 8.0
 
 
 @pytest.fixture
 def small(tmp_path, monkeypatch):
-    monkeypatch.setattr(judge, "CAPTURE_EVERY", 2)
-    monkeypatch.setattr(judge, "MIN_FITS", 1)   # a CPU window holds a few refits
+    small_judges(monkeypatch)
     return tiny_root(str(tmp_path))
 
 
@@ -111,7 +112,7 @@ def test_a_broken_calibration_fit_is_not_correct(small, monkeypatch, fault):
         return new._replace(vig=new.vig + torch.tensor([0.1, 0.0, 0.0], device=new.vig.device)), rms
     monkeypatch.setattr(PC, "calibrate", broken)
     res = _run(small, "tum_mono_calib.laps")
-    assert res["checks"]["judged_fits"]["value"] >= judge.MIN_FITS
+    assert res["checks"]["judged_fits"]["value"] >= res["checks"]["judged_fits"]["limit"]
     assert not res["correct"], res["checks"]
     assert res["checks"]["calib_gap"]["value"] > res["checks"]["calib_gap"]["limit"]
 
@@ -141,3 +142,85 @@ def test_a_one_way_path_fails_rather_than_wrap(small, monkeypatch):
                                "traffic": "sweep", "chips": 1, "why": "test"})
     with pytest.raises(R.RunFailed, match="no wrapping"):
         _run(small, "euroc_mh.sweep", bench=bench)
+
+
+# A judge added as a file: each step of the pipelined entry's mapping thread
+# (SLAMSystem._map_execute), captured with whether it ran on the thread that
+# built the system; its number is the share that did, plus OFFSET.
+MAPPER_JUDGE = """
+import threading
+
+from slambench.judge import Judged
+
+NUMBERS = ("mapper_on_caller",)
+MINIMUMS = {"mapper_steps": FLOOR}
+AFTER = ()
+SCOPE = "run"
+
+
+class Capturer:
+    def __init__(self, ctx):
+        self.system, self.caller, self.captured = ctx.system, threading.get_ident(), []
+
+    def install(self):
+        step = self.system._map_execute
+
+        def captured(*args, **kwargs):
+            self.captured.append(threading.get_ident() == self.caller)
+            return step(*args, **kwargs)
+        self.system._map_execute = captured
+
+    def remove(self):
+        self.system.__dict__.pop("_map_execute", None)
+
+
+def judge(captured, inputs, state, control):
+    share = sum(captured) / max(len(captured), 1)
+    return Judged({"mapper_on_caller": share + OFFSET}, {"mapper_steps": len(captured)}, [])
+"""
+
+
+def _write_judge(root, name, floor=3, offset=0.0, number="mapper_on_caller"):
+    text = MAPPER_JUDGE.replace("FLOOR", str(floor)).replace("OFFSET", repr(offset))
+    with open(os.path.join(root, "judges", name + ".py"), "w") as f:
+        f.write(text.replace('"mapper_on_caller"', repr(number)))
+
+
+def _add_limits(root, limits):
+    path = os.path.join(root, "configs", "euroc_mh.json")
+    with open(path) as f:
+        cfg = json.load(f)
+    cfg["limits"].update(limits)
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+
+
+@pytest.mark.parametrize("variant", ["sound", "broken", "short"])
+def test_a_judge_added_as_a_file_is_held(small, variant):
+    offset = 1.0 if variant == "broken" else 0.0
+    _write_judge(small, "mapper", floor=10 ** 6 if variant == "short" else 3, offset=offset)
+    _add_limits(small, {"mapper_on_caller": 0.5})
+    res = _run(small)
+    checks = res["checks"]
+    assert list(checks) == ["rectify_gap", "pyramid_gap", "track_px_gap", "track_aff_gap",
+                            "mapper_on_caller", "judged_calls", "mapper_steps"]
+    assert checks["mapper_steps"]["value"] >= 3
+    assert checks["mapper_on_caller"]["value"] == offset   # every step on the mapping thread
+    assert res["correct"] == (variant == "sound"), checks
+
+
+@pytest.mark.parametrize("fault", ["unread", "read_twice"])
+def test_limits_no_judge_or_two_judges_read_fail_before_setup(small, monkeypatch, fault):
+    from slambench import scene
+
+    def no_setup(*a, **kw):
+        raise AssertionError("set-up began")
+    monkeypatch.setattr(scene, "render_stream", no_setup)
+    if fault == "unread":
+        key = "bogus_gap"
+        _add_limits(small, {key: 1.0})
+    else:
+        key = "track_px_gap"
+        _write_judge(small, "twin", number=key)
+    with pytest.raises(R.RunFailed, match=key):
+        _run(small)

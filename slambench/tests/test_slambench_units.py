@@ -182,6 +182,20 @@ def test_reference_refit_follows_the_stated_fit(with_prev):
     assert gap > 1.0
 
 
+@pytest.mark.parametrize("entry", ["sequential", "pipelined", "unknown"])
+def test_a_run_keeps_to_a_core_for_each_of_its_entry_threads(entry):
+    """In a process of its own, so that this one keeps its cores."""
+    code = ("import os, sys; sys.path.insert(0, '.'); from slambench.run import pin_cores; "
+            f"before = sorted(os.sched_getaffinity(0)); after = pin_cores({entry!r}); "
+            "print(before, after, sorted(os.sched_getaffinity(0)))")
+    p = subprocess.run([sys.executable, "-c", code], cwd=registry.REPO, capture_output=True,
+                       text=True, timeout=120)
+    assert p.returncode == 0, p.stderr
+    before, after, now = (json.loads(x) for x in p.stdout.strip().replace("] [", "]|[").split("|"))
+    want = {"sequential": 1, "pipelined": 3}.get(entry, len(before))
+    assert after == now == before[-min(want, len(before)):]
+
+
 def test_a_run_without_a_card_fails_and_prints_no_result(tmp_path):
     """Here, with no card, and in a directory that holds only BENCHMARK.json
     and the benchmark's files."""

@@ -1,7 +1,8 @@
 """A cell of the benchmark at a size the CPU runs in seconds: the
 configuration's files copied into a scratch root, the camera cut to a
 quarter of its size in each direction and the capacities to the long-run
-test's, every other piece as committed."""
+test's, every other piece as committed. The judges are the committed ones,
+made to capture and count at the rate a CPU's short window reaches."""
 from __future__ import annotations
 
 import json
@@ -29,10 +30,25 @@ def quarter_camera(text: str) -> str:
             + f"\n{w} {h}\n{lines[2]}\n{ow} {oh}\n")
 
 
+def small_judges(monkeypatch) -> None:
+    """Judges loaded for the rest of the test capture one tracking call in 2
+    and need one refit, not 3 (a CPU window holds a few)."""
+    load = registry.judge_module
+
+    def small(name, root=registry.HERE):
+        mod = load(name, root)
+        if name == "tracking":
+            mod.CAPTURE_EVERY = 2
+        if name == "photo_calib":
+            mod.MINIMUMS = {"judged_fits": 1}
+        return mod
+    monkeypatch.setattr(registry, "judge_module", small)
+
+
 def tiny_root(tmp: str, loop_closure: bool = False) -> str:
-    """A copy of slambench's configs, traffic and metrics under `tmp`, with
-    every configuration cut to the small size."""
-    for kind in ("configs", "traffic", "metrics"):
+    """A copy of slambench's configs, traffic, metrics and judges under
+    `tmp`, with every configuration cut to the small size."""
+    for kind in ("configs", "traffic", "metrics", "judges"):
         shutil.copytree(os.path.join(registry.HERE, kind), os.path.join(tmp, kind))
     for name in os.listdir(os.path.join(tmp, "configs")):
         path = os.path.join(tmp, "configs", name)
